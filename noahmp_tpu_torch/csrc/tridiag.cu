@@ -1,0 +1,92 @@
+// Batched Thomas solve for Hopper (sm_90a): n independent L-row
+// tridiagonal systems, L = 4 or 7, float32, coefficients batch-major
+// (n, L).  Replaces the TPU kernel noahmp_tpu/pallas/tridiag.py
+// (_thomas_kernel).
+//
+// The work is bound by bytes (5*n*L*4 moved, a few operations a byte),
+// so the kernel moves each byte once: one thread per system, the whole
+// system in registers, the grid masks i < n itself.  An L = 4 row is 16
+// aligned bytes and moves as one float4; an L = 7 row is 28 bytes,
+// unaligned, and moves as scalars (a warp still covers one contiguous
+// 896-byte span).
+//
+// C interface: noahmp_thomas_l4 / noahmp_thomas_l7 take raw device
+// pointers, n and the stream, launch, and return cudaGetLastError().
+// They do not synchronise and allocate nothing.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "tridiag.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+template <int L>
+__device__ __forceinline__ void load_row(const float* __restrict__ src,
+                                         int64_t i, float (&r)[L]) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) r[k] = __ldg(src + i * L + k);
+}
+
+template <>
+__device__ __forceinline__ void load_row<4>(const float* __restrict__ src,
+                                            int64_t i, float (&r)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(src) + i);
+  r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+}
+
+template <int L>
+__device__ __forceinline__ void store_row(float* __restrict__ dst,
+                                          int64_t i, const float (&r)[L]) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) dst[i * L + k] = r[k];
+}
+
+template <>
+__device__ __forceinline__ void store_row<4>(float* __restrict__ dst,
+                                             int64_t i, const float (&r)[4]) {
+  reinterpret_cast<float4*>(dst)[i] = make_float4(r[0], r[1], r[2], r[3]);
+}
+
+template <int L>
+__global__ void __launch_bounds__(kThreads)
+thomas_kernel(const float* __restrict__ a, const float* __restrict__ b,
+              const float* __restrict__ c, const float* __restrict__ d,
+              float* __restrict__ x, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float ra[L], rb[L], rc[L], rd[L], rx[L];
+  load_row<L>(a, i, ra);
+  load_row<L>(b, i, rb);
+  load_row<L>(c, i, rc);
+  load_row<L>(d, i, rd);
+  thomas_solve<L>(ra, rb, rc, rd, rx);
+  store_row<L>(x, i, rx);
+}
+
+template <int L>
+int launch(const void* a, const void* b, const void* c, const void* d,
+           void* x, int64_t n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  thomas_kernel<L><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(c), static_cast<const float*>(d),
+      static_cast<float*>(x), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int noahmp_thomas_l4(const void* a, const void* b, const void* c,
+                                const void* d, void* x, int64_t n,
+                                void* stream) {
+  return launch<4>(a, b, c, d, x, n, stream);
+}
+
+extern "C" int noahmp_thomas_l7(const void* a, const void* b, const void* c,
+                                const void* d, void* x, int64_t n,
+                                void* stream) {
+  return launch<7>(a, b, c, d, x, n, stream);
+}
