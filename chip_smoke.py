@@ -7,12 +7,15 @@ CUDA toolkit::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``noahmp_tpu_torch/csrc`` with ``nvcc``,
-holds each kernel against its plain PyTorch version on the card, drives
-the port's main path (one batched Noah-MP model step, ``make_step``) at
-n = 65,536 land points for a few steps on two cases, checks the outputs
-(finite, conservation residuals under the reference model's abort
-bounds, agreement with the port's own CPU run), shows from the launch
-counters that the steps went through the kernels, and times the step.
+holds each kernel against its plain PyTorch version on the card, and
+drives the port's two main paths at n = 65,536 land points for a few
+steps on five cases: the eager step (``make_step``, whose two implicit
+solves go through the Thomas kernel) and the fused step
+(``make_fused_step``, one launch of the column kernel a step).  It
+checks the outputs (finite, conservation residuals under the reference
+model's abort bounds, agreement with the port's own CPU run, every
+option value the fused step accepts), shows from the launch counters
+that each path went through its kernels, and times both steps in turns.
 
 Each phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}``; then the card's name and power limit; the last
@@ -24,38 +27,62 @@ script exits with code 2 before any phase.
 the CPU, to find wrong paths and shapes; it never prints the ``ok`` line
 and always exits non-zero.  ``--profile DIR`` adds one step under
 ``torch.profiler`` and writes the kernel table to ``DIR/step_profile.txt``;
-``--sweep`` times the step at 16k to 1M land points.
+``--sweep`` times both steps at 16k to 1M land points.
+
+The column kernel's operation bound needs ``g++`` and ``gcov`` on the
+machine: the operations are counted by running the kernel's headers,
+built for the host with coverage, over this run's inputs.
 """
 
 import argparse
+import ctypes
+import gzip
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from noahmp_tpu_torch import Options, load_params, make_step
+from noahmp_tpu_torch import (Options, load_params, make_fused_step,
+                              make_step)
 from noahmp_tpu_torch.cases import (FLUX_BAR, FLUX_CEILING, REGIMES,
                                     STATE_BAR, STATE_CEILING, bar_ratio,
                                     hetero_case, scaled_err, to_device,
                                     uniform_case)
 from noahmp_tpu_torch.convert import tree_to_numpy
-from noahmp_tpu_torch.kernels import _build
+from noahmp_tpu_torch.kernels import _build, column
+from noahmp_tpu_torch.kernels.column import column_cuda, column_plain
 from noahmp_tpu_torch.kernels.tridiag import (reset_launches, thomas_cuda,
                                               thomas_plain)
 from noahmp_tpu_torch.numerics.tridiag import masked_identity_rows
+from noahmp_tpu_torch.options import fused_option_sets
 
 SEED = 0
 N_POINTS = 65536
 N_STEPS = 8
 DT = 900.0
 LAUNCHES_PER_STEP = {7: 1, 4: 6}    # heat solve; six Richards sub-steps
+N_OPTIONS = 4096                    # points a fused_options comparison
+N_OPS = 8                           # points the operation count walks
+
+# Gathered parameters the physics uses under the default options: what
+# the byte bound counts, since the bound is what the function needs.
+# The kernel itself loads every gathered parameter of its point,
+# whatever the options; the kernels line gives both byte counts.
+DEFAULT_PARAM_READS = (
+    "xl", "rhol", "rhos", "taul", "taus", "lai12m", "sai12m", "nroot",
+    "canwmxp", "dleaf", "z0mvt", "hvt", "hvb", "rcrown", "cwpvt", "c3c4",
+    "kc25", "akc", "ko25", "ako", "vcmx25", "avcmx", "bp", "mp", "qe25",
+    "folnmx", "tmin", "bexp", "smcmax", "smcref", "smcwlt", "psisat",
+    "dksat", "dwsat", "quartz", "albsat", "albdry")
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 FLOP/s outside
 # the tensor cores
@@ -102,9 +129,12 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build_all()
     seconds = time.perf_counter() - t0
+    attrs = column.kernel_attributes()
     emit("build", seconds=round(seconds, 3), sources=sorted(paths),
-         flags=" ".join(_build.NVCC_FLAGS))
-    return seconds
+         flags=" ".join(_build.NVCC_FLAGS),
+         extra_flags={k: " ".join(v) for k, v in _build.EXTRA_FLAGS.items()},
+         column_kernel=attrs)
+    return seconds, attrs
 
 
 def make_system(rng, n, rows, device):
@@ -133,13 +163,13 @@ def _hold_the_card(device):
         _BLOCKER["m"] @ _BLOCKER["m"]
 
 
-def time_cuda(fn, arg_sets, reps=20, batches=5, warmup=5):
+def time_cuda(fn, arg_sets, reps=20, batches=5, warmup=5, device=None):
     """Device milliseconds of one fn(*args): ``reps`` launches between
     two CUDA events, queued behind a blocker so that they run back to
     back; median over ``batches`` such runs.  Walks over ``arg_sets`` so
     that a set is cold in the L2 cache when its turn comes (the sets
     together exceed the cache)."""
-    device = arg_sets[0][0].device
+    device = device or arg_sets[0][0].device
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
@@ -324,40 +354,123 @@ def phase_step(step, device, n, steps):
     return launches
 
 
-def phase_no_sync(step, device, n):
-    """One step with PyTorch's synchronisation check set to raise: the
-    step must not make the host wait for the card anywhere."""
-    static, forcing, state = to_device(uniform_case(n), device)
-    state, _ = step(static, forcing, state)      # kernels are built by now
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state, _ = step(static, forcing, state)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    emit("no_sync", n=n, host_synchronisations=0)
+def compare_step(label, ref, got):
+    """(state, flux) of the plain version against the kernel's: every
+    float leaf within the step's bars, every int32 leaf equal.  Returns
+    (worst scaled error, its leaf, worst share of the allowed error,
+    leaves equal bit for bit, leaves)."""
+    worst_err, worst_leaf, worst_ratio, equal, leaves = 0.0, "", 0.0, 0, 0
+    for r_tree, g_tree, bar, ceiling in (
+            (ref[0], got[0], STATE_BAR, STATE_CEILING),
+            (ref[1], got[1], FLUX_BAR, FLUX_CEILING)):
+        r_np, g_np = tree_to_numpy(r_tree), tree_to_numpy(g_tree)
+        for name, r in r_np.items():
+            g = g_np[name]
+            leaves += 1
+            if r.dtype == np.int32:
+                if not np.array_equal(g, r):
+                    raise AssertionError(
+                        f"{label}: int leaf {name} differs on "
+                        f"{int((g != r).sum())} elements")
+                equal += 1
+                continue
+            if g.dtype != r.dtype:
+                raise AssertionError(f"{label}: {name} is {g.dtype}")
+            ratio = bar_ratio(r, g, bar, ceiling)
+            err = scaled_err(r, g)
+            if not ratio <= 1.0:
+                raise AssertionError(
+                    f"{label}: {name} kernel vs plain: scaled error {err} "
+                    f"on {int((r != g).sum())} elements, {ratio:.3g} times "
+                    f"what bar {bar} and ceiling {ceiling} allow")
+            equal += int(np.array_equal(r, g, equal_nan=True))
+            if err > worst_err:
+                worst_err, worst_leaf = err, name
+            worst_ratio = max(worst_ratio, ratio)
+    return worst_err, worst_leaf, worst_ratio, equal, leaves
 
 
-def phase_sweep(step, device, sizes=(16384, 65536, 262144, 1048576)):
-    """Step time against the number of land points (opt-in)."""
-    rows = []
-    for n in sizes:
-        static, forcing, state = to_device(uniform_case(n), device)
-        times = []
-        for i in range(5):
+def fused_against_plain(params, opts, case, device):
+    """One step from the same state through the fused step's entry point
+    and through the kernel's plain version.  On the card the entry
+    point launches the kernel, once."""
+    static, forcing, state = to_device(case, device)
+    step = make_fused_step(params, opts, DT, static, device=device)
+    dt = torch.tensor(DT, dtype=torch.float32, device=device)
+    before = column_cuda.launches
+    got = step(None, forcing, state)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        if column_cuda.launches - before != column.LAUNCHES_PER_STEP:
+            raise AssertionError("the fused step did not launch the kernel")
+    with torch.no_grad():
+        ref = column_plain(step.gathered, opts, static, forcing, state, dt)
+    return ref, got
+
+
+def all_cases(n):
+    cases = [("uniform", uniform_case(n))]
+    return cases + [(f"hetero/{r}", hetero_case(r, n)) for r in REGIMES]
+
+
+def phase_fused_kernel(params, device, n):
+    """column_cuda against column_plain: all five cases at n, and the
+    ragged sizes n + 1 and 1."""
+    cases = all_cases(n) + [("uniform", uniform_case(n + 1)),
+                            ("uniform", uniform_case(1))]
+    report, worst = [], (0.0, "", "", 0.0)
+    for name, case in cases:
+        ref, got = fused_against_plain(params, Options(), case, device)
+        points = case[2]["tg"].shape[0]
+        err, leaf, ratio, equal, leaves = compare_step(
+            f"{name} n={points}", ref, got)
+        report.append({"case": name, "n": points, "max_err": err,
+                       "leaf": leaf, "share_of_bar": ratio,
+                       "leaves_bit_equal": equal, "leaves": leaves})
+        if err >= worst[0]:
+            worst = (err, name, leaf, max(ratio, worst[3]))
+    emit("fused_kernel_check", state_bar=STATE_BAR, flux_bar=FLUX_BAR,
+         state_ceiling=STATE_CEILING, flux_ceiling=FLUX_CEILING, cases=report)
+    return worst
+
+
+def phase_fused_step(params, device, n, steps):
+    """This slice's main path: ``steps`` steps of each case through
+    make_fused_step, the trajectory the kernel's own.  Launch counts are
+    zeroed just before and read just after."""
+    cases = all_cases(n)
+    column.reset_launches()
+    reset_launches()
+    report = []
+    for name, case in cases:
+        static, forcing, state = to_device(case, device)
+        step = make_fused_step(params, Options(), DT, static, device=device)
+        t0 = time.perf_counter()
+        flux = None
+        for _ in range(steps):
+            state, flux = step(None, forcing, state)
+        if device.type == "cuda":
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, _ = step(static, forcing, state)
-            torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(times)
-        rows.append({"n": n, "ms_per_step": ms,
-                     "point_steps_per_s": n / (ms * 1e-3),
-                     "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
-        del static, forcing, state
-    emit("sweep", case="uniform", rows=rows)
+        seconds = time.perf_counter() - t0
+        res = check_outputs(f"fused {name}", case[0], state, flux)
+        report.append({"case": name, "steps": steps,
+                       "seconds": round(seconds, 4),
+                       **{f"max_abs_{k}": v for k, v in res.items()}})
+    total_steps = steps * len(cases)
+    launches = column_cuda.launches
+    if device.type == "cuda":
+        want = total_steps * column.LAUNCHES_PER_STEP
+        if launches != want:
+            raise AssertionError(f"column kernel launches {launches}, "
+                                 f"expected {want} for {total_steps} steps")
+        if thomas_cuda.launches != 0:
+            raise AssertionError("the fused path launched the stand-alone "
+                                 f"Thomas kernel {thomas_cuda.launches} times")
+    emit("fused_step", n=n, dt=DT, cases=report, total_steps=total_steps,
+         column_launches=launches,
+         launches_per_step=column.LAUNCHES_PER_STEP,
+         thomas_launches=thomas_cuda.launches)
+    return launches
 
 
 def phase_cpu_agreement(params_cpu, step, device, n=4096):
@@ -395,22 +508,307 @@ def phase_cpu_agreement(params_cpu, step, device, n=4096):
          worst={"regime": worst[0], "leaf": worst[1], "err": worst[2]})
 
 
-def phase_timing(step, device, n, reps=7, warmup=2):
+def phase_fused_cpu_agreement(params, params_cpu, device, n=4096):
+    """One fused step from the same state on the card (the kernel) and
+    on the CPU (its plain version), leaf by leaf."""
+    cpu = torch.device("cpu")
+    worst = ("", "", 0.0)
+    for regime in REGIMES:
+        case = hetero_case(regime, n)
+        _ref, got = fused_against_plain(params, Options(), case, device)
+        static, forcing, state = to_device(case, cpu)
+        ref = make_fused_step(params_cpu, Options(), DT, static,
+                              device="cpu")(None, forcing, state)
+        err, leaf, _ratio, _eq, _n = compare_step(
+            f"{regime} card vs CPU", ref, got)
+        if err > worst[2]:
+            worst = (regime, leaf, err)
+    emit("fused_cpu_agreement", n=n, regimes=list(REGIMES),
+         worst={"regime": worst[0], "leaf": worst[1], "err": worst[2]})
+
+
+def phase_fused_options(params, device, n):
+    """Every option value the fused step accepts, one at a time beside
+    the defaults, on a snow case and a stress case."""
+    report = []
+    for opts in fused_option_sets():
+        changed = {k: v for k, v in opts._asdict().items()
+                   if v != getattr(Options(), k)}
+        for regime in ("cold_snow", "hot_dry"):
+            ref, got = fused_against_plain(params, opts,
+                                           hetero_case(regime, n), device)
+            err, leaf, ratio, _eq, _n = compare_step(
+                f"{changed} hetero/{regime}", ref, got)
+            report.append({"options": changed, "regime": regime,
+                           "max_err": err, "leaf": leaf,
+                           "share_of_bar": ratio})
+    emit("fused_options", n=n, checked=len(report),
+         worst=max(report, key=lambda r: r["share_of_bar"]), cases=report)
+
+
+def phase_no_sync(step, params, device, n):
+    """One step of each path with PyTorch's synchronisation check set to
+    raise: a step must not make the host wait for the card anywhere."""
     static, forcing, state = to_device(uniform_case(n), device)
-    times = []
-    for i in range(warmup + reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    fused = make_fused_step(params, Options(), DT, static, device=device)
+    state, _ = step(static, forcing, state)      # kernels are built by now
+    state, _ = fused(None, forcing, state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
         state, _ = step(static, forcing, state)
+        state, _ = fused(None, forcing, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit("no_sync", n=n, paths=["make_step", "make_fused_step"],
+         host_synchronisations=0)
+
+
+def wall_ms_in_turns(steps, states, reps, warmup):
+    """Host-clock milliseconds of one step of each of ``steps`` (a list
+    of callables state -> state), taken in turns so that both see the
+    same host and the same card; each step ends in a synchronise."""
+    times = [[] for _ in steps]
+    for i in range(warmup + reps):
+        for k, fn in enumerate(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[k] = fn(states[k])
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_sweep(params, step, device, sizes=(16384, 65536, 262144, 1048576)):
+    """Step time of both paths against the number of land points
+    (opt-in)."""
+    rows = []
+    for n in sizes:
+        static, forcing, state = to_device(uniform_case(n), device)
+        fused = make_fused_step(params, Options(), DT, static, device=device)
+        eager_ms, fused_ms = wall_ms_in_turns(
+            [lambda s: step(static, forcing, s)[0],
+             lambda s: fused(None, forcing, s)[0]], [state, state], 3, 2)
+        rows.append({"n": n,
+                     "eager_ms_per_step": statistics.median(eager_ms),
+                     "fused_ms_per_step": statistics.median(fused_ms),
+                     "fused_point_steps_per_s":
+                         n / (statistics.median(fused_ms) * 1e-3),
+                     "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+        del static, forcing, state, fused
+    emit("sweep", case="uniform", rows=rows)
+
+
+def eager_device_ms(step, static, forcing, state):
+    """Summed device time of the kernels of one eager step, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(static, forcing, state)
         torch.cuda.synchronize()
-        if i >= warmup:
-            times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
-    emit("timing", case="uniform", n=n, ms_per_step=ms,
-         ms_min=min(times), ms_max=max(times), reps=reps,
-         point_steps_per_s=n / (ms * 1e-3),
-         note="eager PyTorch, one CUDA kernel per elementwise operation")
-    return ms
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        raise RuntimeError("torch.profiler reported no device time")
+    return (sum(e.device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows))
+
+
+# --- the operations one step executes -------------------------------
+# No profiler counts executed operations on the card, and the work
+# depends on the data (Newton trips, bisection trips, Richards
+# sub-steps).  So the count is taken on the host from the very headers
+# the CUDA kernel is built from: csrc/column_host.cpp is compiled with
+# g++ -O0 --coverage, run over the points, and gcov reports how often
+# each source line ran.  Each statement is weighted by the arithmetic it
+# spells out: one for every + - * / between float operands and one for
+# every call of a math function, of a rounding intrinsic of the Thomas
+# solve or of mx/mn (two for clipf); the small helpers (rdiv, divc, sq,
+# cube, sum_last) are counted where they are defined.  A transcendental
+# call counts as one operation, so the bound errs low.  The loads and
+# stores of column_io.cuh are addressing and are left out, as is integer
+# arithmetic inside [...] and against bare integer literals.  An
+# estimate good to a few per cent, which is all a bound asks for.
+_MATH = ("expf", "logf", "log10f", "powf", "pow", "sqrtf", "rsqrtf", "tanhf",
+         "atanf", "fabsf", "floorf", "fmodf", "mx", "mn", "__fadd_rn",
+         "__fsub_rn", "__fmul_rn", "__fdiv_rn")
+_CALL = re.compile(r"\b(" + "|".join(_MATH) + r")\(")
+_CLIP = re.compile(r"\bclipf\(")
+_BINARY = re.compile(r"(?<=[\w\)\]]) ([+\-*/]) (?=[\w\(\-])")
+_INT_NEIGHBOUR = re.compile(r"(?:\b\d+ [+\-*/] )|(?: [+\-*/] \d+\b(?![.\w]))")
+# sources that hold no physics: the argument list, the per-point loads
+# and stores, the host loop
+_NOT_PHYSICS = ("column_args.cuh", "column_io.cuh", "column_host.cpp",
+                "host_compat.h")
+# the host build plus a way to write the counters out before the
+# process ends
+_COVERAGE_UNIT = """#include "column_host.cpp"
+extern "C" void __gcov_dump(void);
+extern "C" void column_coverage_dump() { __gcov_dump(); }
+"""
+
+
+def statement_ops(code):
+    """Float operations spelled out in one line of source."""
+    code = code.split("//")[0]
+    if code.lstrip().startswith("#"):
+        return 0
+    code = re.sub(r"\[[^\]]*\]", "[]", code)
+    n = len(_BINARY.findall(code)) - len(_INT_NEIGHBOUR.findall(code))
+    return max(n, 0) + len(_CALL.findall(code)) + 2 * len(_CLIP.findall(code))
+
+
+def line_counts(build_dir):
+    """{header: {line number: executions}} from gcov's JSON report."""
+    subprocess.run(["gcov", "--json-format", "-o", build_dir,
+                    os.path.join(build_dir, "coverage.o")],
+                   cwd=build_dir, check=True, capture_output=True)
+    with gzip.open(os.path.join(build_dir, "coverage.gcov.json.gz")) as fh:
+        report = json.load(fh)
+    counts = {}
+    for entry in report["files"]:
+        path = os.path.abspath(os.path.join(build_dir, entry["file"]))
+        name = os.path.basename(path)
+        if os.path.dirname(path) != _build.CSRC_DIR or name in _NOT_PHYSICS:
+            continue
+        per_line = counts.setdefault(name, {})
+        for line in entry["lines"]:
+            no = line["line_number"]
+            per_line[no] = per_line.get(no, 0) + line["count"]
+    return counts
+
+
+def weigh(counts):
+    """Sum over statements of (operations spelled out) x (executions).
+    A statement spans lines up to its ``;``, ``{`` or ``}``; it ran as
+    often as its most-run line."""
+    total, by_file = 0, {}
+    for fname, per_line in counts.items():
+        with open(os.path.join(_build.CSRC_DIR, fname)) as fh:
+            lines = fh.read().splitlines()
+        ops = runs = sub = 0
+        for no, text in enumerate(lines, 1):
+            ops += statement_ops(text)
+            runs = max(runs, per_line.get(no, 0))
+            if text.split("//")[0].rstrip().endswith((";", "{", "}")):
+                sub += ops * runs
+                ops = runs = 0
+        by_file[fname] = sub
+        total += sub
+    return total, by_file
+
+
+def count_operations(gathered, opts, dt, static, forcing, state):
+    """Float32 operations that one step of these CPU tensors executes,
+    summed over the points.  Returns (total, {header: operations})."""
+    build_dir = tempfile.mkdtemp(prefix="column_ops_")
+    try:
+        unit = os.path.join(build_dir, "coverage.cpp")
+        obj = os.path.join(build_dir, "coverage.o")
+        lib_path = os.path.join(build_dir, "libcolumn_coverage.so")
+        with open(unit, "w") as fh:
+            fh.write(_COVERAGE_UNIT)
+        subprocess.run(["g++", "-O0", "--coverage", "-std=c++17",
+                        "-ffp-contract=off", "-fPIC", "-I", _build.CSRC_DIR,
+                        "-c", unit, "-o", obj], check=True)
+        subprocess.run(["g++", "--coverage", "-shared", "-o", lib_path, obj],
+                       check=True)
+        lib = ctypes.CDLL(lib_path)
+        args_type = column._args_type()
+        column.check_abi(lib, args_type)
+        lib.noahmp_column_host.argtypes = [ctypes.POINTER(args_type)]
+        lib.noahmp_column_host.restype = ctypes.c_int
+        plan = column.ColumnPlan(gathered, opts, dt, static, need_cuda=False)
+        _s, _f, outputs = plan.outputs()
+        args = plan.point_to(forcing, state, outputs)
+        if lib.noahmp_column_host(ctypes.byref(args)) != 0:
+            raise RuntimeError("the host build of the column step failed")
+        lib.column_coverage_dump()
+        return weigh(line_counts(build_dir))
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+
+
+def column_bound(params_cpu, gathered, static, forcing, state, n):
+    """The least time the card could take for one launch: bytes (every
+    input the default options need, once; every output, once) over the
+    memory rate, against the float32 operations these inputs execute
+    (counted on the host over N_OPS of the points, which are all alike
+    in the uniform case) over the float32 rate.  Also the bytes the
+    kernel as written moves: it loads every gathered parameter."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    in_bytes = sum(nbytes(t) for tree in (static, forcing, state)
+                   for t in tree)
+    param_bytes = sum(nbytes(gathered.fields[f]) for f in DEFAULT_PARAM_READS)
+    all_param_bytes = sum(nbytes(t) for t in gathered.fields.values())
+    head = column.header_layout()
+    out_bytes = 4 * n * sum(w for _n, _d, w in head["STATE"] + head["FLUX"])
+    s_cpu, f_cpu, st_cpu = to_device(uniform_case(N_OPS), "cpu")
+    g_cpu = make_fused_step(params_cpu, Options(), DT, s_cpu,
+                            device="cpu").gathered
+    ops, _by_file = count_operations(g_cpu, Options(), DT, s_cpu, f_cpu,
+                                     st_cpu)
+    ops_per_point = ops / N_OPS
+    needed = in_bytes + param_bytes + out_bytes
+    t_bytes = needed / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops_per_point * n / PEAK_F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": needed, "bytes_per_point": needed / n,
+            "bytes_ms": t_bytes,
+            "kernel_bytes_per_point":
+                (in_bytes + all_param_bytes + out_bytes) / n,
+            "operations_per_point": ops_per_point, "operations_ms": t_ops}
+
+
+def phase_timing(params, params_cpu, step, device, n, reps=7, warmup=2):
+    """Eager and fused step in turns on the host clock, and the fused
+    kernel's device time from CUDA events."""
+    static, forcing, state = to_device(uniform_case(n), device)
+    fused = make_fused_step(params, Options(), DT, static, device=device)
+    eager_ms, fused_ms = wall_ms_in_turns(
+        [lambda s: step(static, forcing, s)[0],
+         lambda s: fused(None, forcing, s)[0]], [state, state], reps, warmup)
+
+    # device time of the kernel alone: launches queued back to back
+    # behind a blocker, walking three independent copies of the inputs
+    # (120 MB together, past the 50 MB L2)
+    sets = []
+    for _ in range(3):
+        s_k, f_k, st_k = to_device(uniform_case(n), device)
+        fk = make_fused_step(params, Options(), DT, s_k, device=device)
+        sets.append((column.ColumnPlan(fk.gathered, Options(), DT, s_k),
+                     f_k, st_k))
+    kernel_ms = time_cuda(column_cuda, sets, device=device)
+    kernel_ms_isolated = time_cuda_isolated(column_cuda, sets)
+    plain_device_ms, plain_kernels = eager_device_ms(step, static, forcing,
+                                                     state)
+    bound = column_bound(params_cpu, fused.gathered, static, forcing, state, n)
+
+    e_ms, f_ms = statistics.median(eager_ms), statistics.median(fused_ms)
+    emit("timing", case="uniform", n=n, reps=reps, in_turns=True,
+         eager={"ms_per_step": e_ms, "ms_min": min(eager_ms),
+                "ms_max": max(eager_ms),
+                "point_steps_per_s": n / (e_ms * 1e-3),
+                "device_ms": plain_device_ms,
+                "device_kernels": plain_kernels},
+         fused={"ms_per_step": f_ms, "ms_min": min(fused_ms),
+                "ms_max": max(fused_ms),
+                "point_steps_per_s": n / (f_ms * 1e-3),
+                "kernel_device_ms": kernel_ms,
+                "kernel_ms_isolated": kernel_ms_isolated,
+                "host_share_ms": f_ms - kernel_ms},
+         bound=bound,
+         note="eager: one CUDA kernel per tensor operation; fused: one "
+              "launch of the column kernel a step")
+    return {"ms": kernel_ms, "ms_isolated": kernel_ms_isolated,
+            "plain_ms": plain_device_ms, "plain_wall_ms": e_ms,
+            "wall_ms": f_ms, **bound}
 
 
 def phase_profile(step, device, n, out_dir):
@@ -451,6 +849,14 @@ def cpu_rehearsal():
     mat, rhs = dense_solve(*sysm)
     emit("rehearsal_dense", err=kernel_err(
         thomas_plain(*sysm), torch.linalg.solve(mat, rhs).squeeze(-1)))
+    # the fused phases, with the kernel's plain version in its place
+    phase_fused_kernel(params, device, 16)
+    phase_fused_step(params, device, 64, 2)
+    phase_fused_options(params, device, 8)
+    static, forcing, state = to_device(uniform_case(N_OPS), device)
+    fused = make_fused_step(params, Options(), DT, static, device="cpu")
+    emit("rehearsal_bound", **column_bound(params, fused.gathered, static,
+                                           forcing, state, N_OPS))
     print("cpu rehearsal finished; this is not a result", file=sys.stderr)
     return 3
 
@@ -471,23 +877,64 @@ def main():
     t_start = time.perf_counter()
 
     card = phase_env()
-    phase_build()
+    build_seconds, attrs = phase_build()
     entries = phase_kernels(device)
 
     params = load_params("USGS", "STAS")            # on the card
     params_cpu = load_params("USGS", "STAS", device="cpu")
+    worst = phase_fused_kernel(params, device, N_POINTS)
+
+    # the eager path and the Thomas kernel it launches
     step = make_step(params, Options(), DT)          # device=None: the card
     launches = phase_step(step, device, N_POINTS, N_STEPS)
-    phase_no_sync(step, device, N_POINTS)
     phase_cpu_agreement(params_cpu, step, device)
-    phase_timing(step, device, N_POINTS)
+
+    # the fused path and the column kernel it launches
+    column_launches = phase_fused_step(params, device, N_POINTS, N_STEPS)
+    phase_fused_cpu_agreement(params, params_cpu, device)
+    phase_fused_options(params, device, N_OPTIONS)
+    phase_no_sync(step, params, device, N_POINTS)
+    timing = phase_timing(params, params_cpu, step, device, N_POINTS)
     if args.profile:
         phase_profile(step, device, N_POINTS, args.profile)
     if args.sweep:
-        phase_sweep(step, device)
+        phase_sweep(params, step, device)
 
     for entry in entries:
         entry["launches"] = launches[entry["shape"][1]]
+    entries.append({
+        "name": "column_cuda", "route": "cuda",
+        "source": "noahmp_tpu_torch/csrc/column.cu",
+        "replaces": "noahmp_tpu/pallas/column.py:127",
+        "shape": [N_POINTS], "launches": column_launches,
+        "launches_per_step": column.LAUNCHES_PER_STEP,
+        "max_abs_err": worst[0],
+        "max_abs_err_at": f"{worst[1]}: {worst[2]}",
+        "max_share_of_bar": worst[3],
+        "ms": timing["ms"], "ms_isolated": timing["ms_isolated"],
+        "step_wall_ms": timing["wall_ms"],
+        "plain_ms": timing["plain_ms"],
+        "plain_wall_ms": timing["plain_wall_ms"],
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "bytes_per_point": timing["bytes_per_point"],
+        "bytes_ms": timing["bytes_ms"],
+        "kernel_bytes_per_point": timing["kernel_bytes_per_point"],
+        "operations_per_point": timing["operations_per_point"],
+        "operations_ms": timing["operations_ms"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes a land-surface "
+                   "model step",
+        "registers_per_thread": attrs["registers_per_thread"],
+        "local_bytes_per_thread": attrs["local_bytes_per_thread"],
+        "build_seconds": round(build_seconds, 3),
+        "timing": "ms: CUDA events around 20 launches queued back to back, "
+                  "median of 5, three input sets walked in turn (cold in "
+                  "L2); plain_ms: summed device time of the eager step's "
+                  "kernels (torch.profiler); plain_wall_ms and "
+                  "step_wall_ms: host clock, median of 7, in turns; "
+                  "max_abs_err is |a-b|/max(1,|a|) against column_plain",
+    })
+    for entry in entries:
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} was not launched by "
                                  "the main path")

@@ -10,6 +10,10 @@ Quick start::
     step = make_step(params, Options(), dt=900.0)
     state, flux = step(static, forcing, state)
 
+    # the same step in one launch of the fused column kernel
+    fused = make_fused_step(params, Options(), 900.0, static)
+    state, flux = fused(None, forcing, state)
+
 Every entry point takes ``device=None`` (the card; raises without CUDA)
 or an explicit device such as ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only, never ``jax`` or ``noahmp_tpu``.
@@ -19,7 +23,7 @@ from .constants import NBAND, NSOIL, MSNOW, NLEVELS
 from .options import Options, DEFAULT_OPTIONS
 from .params import load_params, Params
 from .state import State, Static, Forcing, Flux, init_state, init_static
-from .driver.step import make_step
+from .driver.step import make_step, make_fused_step
 
 __version__ = "0.1.0"
 
@@ -27,5 +31,5 @@ __all__ = [
     "NBAND", "NSOIL", "MSNOW", "NLEVELS",
     "Options", "DEFAULT_OPTIONS", "load_params", "Params",
     "State", "Static", "Forcing", "Flux", "init_state", "init_static",
-    "make_step", "__version__",
+    "make_step", "make_fused_step", "__version__",
 ]

@@ -22,9 +22,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# per-source extra flags; tridiag must round a*p before the add, as the
-# plain version does
-EXTRA_FLAGS = {"tridiag": ("--fmad=false",)}
+# per-source extra flags; both sources must round a product before the
+# add that follows it, as the plain versions do (eager PyTorch never
+# contracts a multiply and an add across two operations)
+EXTRA_FLAGS = {"tridiag": ("--fmad=false",), "column": ("--fmad=false",)}
 
 _LIBS = {}
 _LOCK = threading.Lock()

@@ -8,6 +8,9 @@ runs only the selected branch and never dispatches on the hot path.
 
 ``UNPORTED`` lists the option values whose branch the port does not hold
 yet; ``check_ported`` raises for them when a step is built.
+``FUSED_UNPORTED`` lists the values that the fused column kernel refuses
+on top of those; ``check_fused_ported`` raises for them when a fused
+step is built.
 """
 
 from typing import NamedTuple
@@ -57,12 +60,60 @@ UNPORTED = {
 }
 
 
+# Option values that the eager step runs but the fused column kernel
+# (kernels/column.py) does not: a fused step built with one of them
+# raises.  Every other value of every option is held against the plain
+# version on the card by chip_smoke.py's fused_options phase.
+FUSED_UNPORTED = {}
+
+# Every value an option can take, for the checks that walk them all.
+OPTION_VALUES = {
+    "veg": (1, 2, 3, 4, 5), "crs": (1, 2), "btr": (1, 2, 3),
+    "run": (1, 2, 3, 4), "sfc": (1, 2), "frz": (1, 2), "inf": (1, 2),
+    "rad": (1, 2, 3), "alb": (1, 2), "snf": (1, 2, 3), "tbot": (1, 2),
+    "stc": (1, 2),
+}
+
+
+def _missing(opts: Options, table: dict) -> list:
+    return [f"opt_{name}={getattr(opts, name)}: {values[getattr(opts, name)]}"
+            for name, values in table.items()
+            if getattr(opts, name) in values]
+
+
 def check_ported(opts: Options) -> None:
     """Raise NotImplementedError naming every option value of ``opts``
     that the port does not implement yet."""
-    missing = [f"opt_{name}={getattr(opts, name)}: {values[getattr(opts, name)]}"
-               for name, values in UNPORTED.items()
-               if getattr(opts, name) in values]
+    missing = _missing(opts, UNPORTED)
     if missing:
         raise NotImplementedError(
             "not ported to PyTorch yet: " + "; ".join(missing))
+
+
+def check_fused_ported(opts: Options) -> None:
+    """Raise NotImplementedError naming every option value of ``opts``
+    that the fused column kernel refuses, or that is no value of its
+    option at all (the kernel branches on the numbers it is given)."""
+    unknown = [f"opt_{name}={getattr(opts, name)}"
+               for name, values in OPTION_VALUES.items()
+               if getattr(opts, name) not in values]
+    if unknown:
+        raise ValueError("unknown option values: " + "; ".join(unknown))
+    missing = _missing(opts, FUSED_UNPORTED)
+    if missing:
+        raise NotImplementedError(
+            "not in the fused column kernel yet: " + "; ".join(missing))
+
+
+def fused_option_sets() -> list:
+    """One ``Options`` per option value the fused step accepts that
+    differs from the default: the default with that one value changed."""
+    out = []
+    for name, values in OPTION_VALUES.items():
+        for v in values:
+            if (v == getattr(DEFAULT_OPTIONS, name)
+                    or v in UNPORTED.get(name, {})
+                    or v in FUSED_UNPORTED.get(name, {})):
+                continue
+            out.append(DEFAULT_OPTIONS._replace(**{name: v}))
+    return out

@@ -100,7 +100,8 @@ def test_importing_builds_nothing():
     build_dir = os.path.join(os.path.dirname(noahmp_tpu_torch.__file__),
                              "_build")
     from noahmp_tpu_torch.kernels import _build
-    assert _build.sources() == ["tridiag"]
-    assert _build.library_path("tridiag").startswith(build_dir)
+    assert _build.sources() == ["column", "tridiag"]
+    for name in _build.sources():
+        assert _build.library_path(name).startswith(build_dir)
     if not torch.cuda.is_available():
         assert not os.path.exists(build_dir) or not os.listdir(build_dir)
