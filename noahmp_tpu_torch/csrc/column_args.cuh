@@ -11,6 +11,13 @@
 //
 // Pointer order in ColumnArgs::in : STATIC, FORCING, STATE, PARAM.
 // Pointer order in ColumnArgs::out: STATE, FLUX.
+//
+// NM_SEAM_FIELDS lists the words that cross from one stage of the step
+// to a later one through the scratch buffer (ColumnArgs::scratch), laid
+// out (words, slab): word w of the slab's point j lies at
+// scratch[w * slab + j], so neighbouring threads touch neighbouring
+// addresses.  kernels/column.py sizes the buffer from its own copy of
+// the list (SEAM_FIELDS), held against this one by the same test.
 #pragma once
 
 #include <cstdint>
@@ -214,6 +221,32 @@
   XV(albdry, float, 2)          \
   XS(slope, float)
 
+// What crosses a seam between two stages, by the stage that writes it.
+// An output leaf that is final when a stage has it is stored to its
+// leaf there and read back from the leaf by a later stage; only what is
+// no output, or not final yet, goes through the scratch.
+#define NM_SEAM_FIELDS(XS, XV)                                             \
+  /* prologue -> flux, ground, water */                                    \
+  XS(ur, float) XS(thair, float) XS(eair, float) XS(rhoair, float)         \
+  XS(gammav, float) XS(gammag, float) XS(laisun, float) XS(laisha, float)  \
+  XS(zlvl, float) XS(zpd, float) XS(z0m, float) XS(z0mg, float)            \
+  XS(emv, float) XS(emg, float) XS(stc_top, float) XS(df_top, float)       \
+  XS(dz_top, float) XS(rsurf, float) XS(latheav, float)                    \
+  XS(latheag, float) XS(parsun, float) XS(parsha, float) XS(igs, float)    \
+  XS(btran, float) XS(rhsur, float) XS(htop, float) XS(elai, float)        \
+  XS(esai, float) XV(df, float, 7) XV(hcpct, float, 7)                     \
+  XV(btrani, float, 4)                                                     \
+  /* flux (vegetated tile) -> ground; ground rewrites v_tv for water */    \
+  XS(v_tv, float) XS(v_tgv, float) XS(v_tah, float) XS(v_eah, float)       \
+  XS(v_cmv, float) XS(v_chv, float) XS(v_psnsun, float)                    \
+  XS(v_psnsha, float) XS(v_rssun, float) XS(v_rssha, float)                \
+  /* flux (bare tile) -> ground, water */                                  \
+  XS(b_tgb, float) XS(b_qsfc, float) XS(b_cmb, float) XS(b_q2b, float)     \
+  /* ground -> water */                                                    \
+  XS(qvap, float) XS(qdew, float) XS(g_snowh, float)                       \
+  XV(g_snice, float, 3) XV(g_snliq, float, 3) XV(g_stc, float, 7)          \
+  XV(g_swc, float, 4) XV(g_smc, float, 4) XV(g_imelt, int, 3)
+
 // The 12 option switches (options.py:Options), uniform over the grid.
 #define NM_OPTION_FIELDS(X) \
   X(veg) X(crs) X(btr) X(run) X(sfc) X(frz) X(inf) X(rad) X(alb) X(snf) \
@@ -245,27 +278,27 @@ constexpr int kNumGen = 0 NM_GEN_SCALARS(NM_COUNT_X);
 constexpr int kNumIn = kNumStatic + kNumForcing + kNumState + kNumParam;
 constexpr int kNumOut = kNumState + kNumFlux;
 
-// Per-point containers generated from the lists.
-#define NM_MEMBER_S(name, type) type name;
-#define NM_MEMBER_V(name, type, width) type name[width];
+#define NM_WORDS_S(name, type) +1
+#define NM_WORDS_V(name, type, width) +(width)
+constexpr int kSeamWords = 0 NM_SEAM_FIELDS(NM_WORDS_S, NM_WORDS_V);
+
 #define NM_MEMBER_I(name) int name;
 #define NM_MEMBER_F(name) float name;
 
-struct StaticPt { NM_STATIC_FIELDS(NM_MEMBER_S, NM_MEMBER_V) };
-struct ForcingPt { NM_FORCING_FIELDS(NM_MEMBER_S, NM_MEMBER_V) };
-struct StatePt { NM_STATE_FIELDS(NM_MEMBER_S, NM_MEMBER_V) };
-struct FluxPt { NM_FLUX_FIELDS(NM_MEMBER_S, NM_MEMBER_V) };
-struct ParamPt { NM_PARAM_FIELDS(NM_MEMBER_S, NM_MEMBER_V) };
 struct OptionSet { NM_OPTION_FIELDS(NM_MEMBER_I) };
 struct ClassScalars { NM_CLASS_SCALARS(NM_MEMBER_I) };
 struct GenScalars { NM_GEN_SCALARS(NM_MEMBER_F) };
 
-// What the launcher is handed, by value as the kernel's one parameter
-// (about 1.9 KB, under the 4 KB limit).  kernels/column.py mirrors it
-// as a ctypes.Structure, field for field.
+// What the launcher is handed, by value as every stage kernel's
+// parameter (about 1.9 KB, under the 4 KB limit).  kernels/column.py
+// mirrors it as a ctypes.Structure, field for field.  scratch holds
+// kSeamWords * slab words; the launcher walks the n points slab by
+// slab, every stage on one slab before the next slab begins.
 struct ColumnArgs {
   const void* in[kNumIn];
   void* out[kNumOut];
+  void* scratch;
+  int64_t slab;
   int64_t n;
   float dt;
   OptionSet opt;

@@ -25,8 +25,12 @@
 #include "host_compat.h"
 #endif
 
+// Every function of the physics headers is forced inline into the
+// stage kernel that calls it.  That takes the per-point structs the
+// modules hand each other out of local memory (0-56 bytes a thread are
+// left, where __noinline__ module functions left 216-960) and made the
+// step a quarter faster on an H100, for 5-15 s of nvcc.
 #define NM_INL static __device__ __forceinline__
-#define NM_FN static __device__ __noinline__
 
 #define F32(expr) (static_cast<float>(expr))
 
@@ -56,15 +60,15 @@ constexpr float RVAP = 461.269f;
 constexpr float DENWAT = 1000.0f;
 constexpr float DENICE = 917.0f;
 
+// A comparison with a NaN is false, so when only b is NaN the select
+// already yields b: one test of a is all the NaN handling needs.
 NM_INL float mx(float a, float b) {
   if (a != a) return a;
-  if (b != b) return b;
   return a > b ? a : b;
 }
 
 NM_INL float mn(float a, float b) {
   if (a != a) return a;
-  if (b != b) return b;
   return a < b ? a : b;
 }
 

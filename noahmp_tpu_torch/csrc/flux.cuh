@@ -8,7 +8,7 @@
 // whole: the values it carries are the same.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 #include "sfc.cuh"
 
@@ -53,7 +53,7 @@ NM_INL void exchange(int opt_sfc, float czil, bool first, Sfcdif1Carry& s1,
   fh2 = 0.0f;
 }
 
-NM_FN void vege_flux(const ParamPt& p, const GenScalars& gen,
+NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
                      const OptionSet& opt, float dt, float sav, float sag,
                      float lwdn, float ur, float uu, float vv, float sfctmp,
                      float thair, float qair, float eair, float rhoair,
@@ -110,7 +110,7 @@ NM_FN void vege_flux(const ParamPt& p, const GenScalars& gen,
     const float rawc = rahc;
 
     float rahg, rb;
-    ragrb(p.dleaf, first, c_mozg, c_fhg, vaie, rhoair, c_hg, c_tah, zpd, z0mg,
+    ragrb(p.dleaf(), first, c_mozg, c_fhg, vaie, rhoair, c_hg, c_tah, zpd, z0mg,
           z0hg, hcan, uc, z0h, fv, cwp, rahg, rb);
     const float rawg = rahg;
 
@@ -279,7 +279,7 @@ NM_FN void vege_flux(const ParamPt& p, const GenScalars& gen,
   o.ch2v = cah2;
 }
 
-NM_FN void bare_flux(const GenScalars& gen, const ClassScalars& cls,
+NM_INL void bare_flux(const GenScalars& gen, const ClassScalars& cls,
                      const OptionSet& opt, int lutyp, float sag, float lwdn,
                      float ur, float uu, float vv, float sfctmp, float thair,
                      float qair, float eair, float rhoair, float snowh,

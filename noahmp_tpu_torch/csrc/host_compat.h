@@ -10,9 +10,6 @@
 #define __host__
 #define __global__
 #define __forceinline__ inline
-#ifndef __noinline__
-#define __noinline__ __attribute__((noinline))
-#endif
 #define __restrict__ __restrict
 
 // round-to-nearest intrinsics of csrc/tridiag.cuh; the host file is

@@ -2,7 +2,7 @@
 // physics/phenology.py.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 
 namespace nm {
@@ -23,7 +23,7 @@ NM_INL bool is_nonveg(int lutyp, const ClassScalars& cls) {
          lutyp == cls.isice || lutyp == cls.isurban;
 }
 
-NM_FN void phenology(const ParamPt& p, const ClassScalars& cls, int lutyp,
+NM_INL void phenology(const ParamRef& p, const ClassScalars& cls, int lutyp,
                      float snowh, float tv, float lat, float yearlen,
                      float julian, float lai, float sai, int opt_veg,
                      PhenologyOut& o) {
@@ -39,8 +39,11 @@ NM_FN void phenology(const ParamPt& p, const ClassScalars& cls, int lutyp,
     const float wt2 = 1.0f - wt1;
     it1 = (it1 < 1) ? 12 : it1;
     it2 = (it2 > 12) ? 1 : it2;
-    lai = wt1 * vsel(p.lai12m, it1 - 1) + wt2 * vsel(p.lai12m, it2 - 1);
-    sai = wt1 * vsel(p.sai12m, it1 - 1) + wt2 * vsel(p.sai12m, it2 - 1);
+    // as numerics/select.py:vsel, a month outside the table reads slot 0
+    const int m1 = (it1 >= 2 && it1 <= 12) ? it1 - 1 : 0;
+    const int m2 = (it2 >= 2 && it2 <= 12) ? it2 - 1 : 0;
+    lai = wt1 * p.lai12m(m1) + wt2 * p.lai12m(m2);
+    sai = wt1 * p.sai12m(m1) + wt2 * p.sai12m(m2);
   }
 
   sai = (sai < 0.05f) ? 0.0f : sai;
@@ -51,8 +54,8 @@ NM_FN void phenology(const ParamPt& p, const ClassScalars& cls, int lutyp,
   }
 
   // canopy burial by snow
-  const float hvt = p.hvt;
-  const float hvb = p.hvb;
+  const float hvt = p.hvt();
+  const float hvb = p.hvb();
   const float db = clipf(snowh - hvb, 0.0f, hvt - hvb);
   float fb = db / mx(hvt - hvb, 1.0e-6f);
   const float snowhc = hvt * expf(divc(-snowh, 0.2f));
@@ -68,7 +71,7 @@ NM_FN void phenology(const ParamPt& p, const ClassScalars& cls, int lutyp,
   o.sai = sai;
   o.elai = elai;
   o.esai = esai;
-  o.igs = (tv > p.tmin) ? 1.0f : 0.0f;
+  o.igs = (tv > p.tmin()) ? 1.0f : 0.0f;
   o.htop = hvt;
 }
 

@@ -3,7 +3,7 @@
 // physics/radiation.py.  Band axis: 0 = vis, 1 = nir.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 
 namespace nm {
@@ -20,13 +20,13 @@ struct TwoStreamOut {
 };
 
 // Dickinson/Sellers two-stream with the Niu-Yang gap modification
-NM_FN void twostream(const ParamPt& p, const GenScalars& gen, bool direct,
+NM_INL void twostream(const ParamRef& p, const GenScalars& gen, bool direct,
                      float cosz, float vai, float fwet, float t,
                      const float (&albgrd)[2], const float (&albgri)[2],
                      const float (&rho)[2], const float (&tau)[2], float gap,
                      float kopen, TwoStreamOut& o) {
   const float coszi = mx(cosz, 0.001f);
-  float chil = clipf(p.xl, -0.4f, 0.6f);
+  float chil = clipf(p.xl(), -0.4f, 0.6f);
   chil = (fabsf(chil) <= 0.01f) ? 0.01f : chil;
   const float phi1 = 0.5f - 0.633f * chil - 0.330f * chil * chil;
   const float phi2 = 0.877f * (1.0f - 2.0f * phi1);
@@ -123,7 +123,7 @@ NM_FN void twostream(const ParamPt& p, const GenScalars& gen, bool direct,
   }
 }
 
-NM_FN void radiation(const ParamPt& p, const GenScalars& gen, int ist, int isc,
+NM_INL void radiation(const ParamRef& p, const GenScalars& gen, int ist, int isc,
                      float sneqvo, float sneqv, float dt, float cosz, float tg,
                      float tv, float fsno, float qsnow, float fwet, float elai,
                      float esai, float smc0, const float (&solad)[2],
@@ -136,8 +136,8 @@ NM_FN void radiation(const ParamPt& p, const GenScalars& gen, int ist, int isc,
   float rho[2], tau[2];
 #pragma unroll
   for (int b = 0; b < 2; ++b) {
-    rho[b] = mx(p.rhol[b] * wl + p.rhos[b] * ws, MPE);
-    tau[b] = mx(p.taul[b] * wl + p.taus[b] * ws, MPE);
+    rho[b] = mx(p.rhol(b) * wl + p.rhos(b) * ws, MPE);
+    tau[b] = mx(p.taul(b) * wl + p.taus(b) * ws, MPE);
   }
 
   // BATS snow age
@@ -185,7 +185,7 @@ NM_FN void radiation(const ParamPt& p, const GenScalars& gen, int ist, int isc,
   for (int b = 0; b < 2; ++b) {
     float albsod, albsoi;
     if (ist == 1) {
-      albsod = mn(p.albsat[b] + inc, p.albdry[b]);
+      albsod = mn(p.albsat(b) + inc, p.albdry(b));
       albsoi = albsod;
     } else if (tg > TFRZ) {
       albsod = lake_d;
@@ -205,9 +205,9 @@ NM_FN void radiation(const ParamPt& p, const GenScalars& gen, int ist, int isc,
   // canopy gap probabilities
   float gap, kopen, bgap, wgap;
   if (opt_rad == 1) {
-    const float rc = mx(p.rcrown, MPE);
+    const float rc = mx(p.rcrown(), MPE);
     const float denfveg = -logf(mx(1.0f - fveg, 0.01f)) / (pai * (rc * rc));
-    const float hd = p.hvt - p.hvb;
+    const float hd = p.hvt() - p.hvb();
     const float bb = 0.5f * hd;
     const float c = clipf(mx(cosz, 0.01f), -1.0f, 1.0f);
     const float t = bb / rc * sqrtf(mx(1.0f - c * c, 0.0f)) / c;

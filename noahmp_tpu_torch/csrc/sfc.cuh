@@ -4,7 +4,7 @@
 // resistance; counterpart of physics/sfc.py.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 
 namespace nm {
@@ -78,7 +78,7 @@ NM_INL void mo_unstable(float m, float& fmn, float& fhn) {
 NM_INL float guard_mpe(float x) { return (fabsf(x) <= MPE) ? MPE : x; }
 
 // Monin-Obukhov exchange coefficients; updates the carry in place
-NM_FN void sfcdif1(bool first, Sfcdif1Carry& c, float sfctmp, float rhoair,
+NM_INL void sfcdif1(bool first, Sfcdif1Carry& c, float sfctmp, float rhoair,
                    float h, float qair, float zlvl, float zpd, float z0m,
                    float z0h, float ur, float& cm, float& ch) {
   const float mozold = c.moz;
@@ -172,7 +172,7 @@ NM_INL float quarter_root(float z) {
 
 // Chen97 exchange coefficients; akms/akhs of the carry are the
 // conductances handed in, the carry is updated in place
-NM_FN void sfcdif2(bool first, Sfcdif2Carry& c, float z0, float thz0,
+NM_INL void sfcdif2(bool first, Sfcdif2Carry& c, float z0, float thz0,
                    float thlm, float sfcspd, float czil, float zlm) {
   const float vkrm = 0.40f;
   const float wwst2 = F32(1.2 * 1.2);
@@ -254,7 +254,7 @@ NM_FN void sfcdif2(bool first, Sfcdif2Carry& c, float z0, float thz0,
 
 // Under-canopy aerodynamic and leaf boundary-layer resistances; mozg and
 // fhg are the carry
-NM_FN void ragrb(float dleaf, bool first, float& mozg, float& fhg, float vai,
+NM_INL void ragrb(float dleaf, bool first, float& mozg, float& fhg, float vai,
                  float rhoair, float hg, float tah, float zpd, float z0mg,
                  float z0hg, float hcan, float uc, float z0h, float fv,
                  float cwp, float& rahg, float& rb) {
@@ -287,28 +287,28 @@ NM_FN void ragrb(float dleaf, bool first, float& mozg, float& fhg, float vai,
 // Ball-Berry stomatal resistance and photosynthesis, bisection on the
 // internal CO2.  A point leaves the loop once it has converged: from
 // then on the masked plain version changes none of its values.
-NM_FN void stomata(const ParamPt& p, float igs, float sfcprs, float sfctmp,
+NM_INL void stomata(const ParamRef& p, float igs, float sfcprs, float sfctmp,
                    float apar, float tv, float ea, float ei, float o2,
                    float co2, float foln, float btran, float rb, float& rs_out,
                    float& psn_out) {
   const float cf = sfcprs / (RGAS * sfctmp) * 1.0e6f;
-  const float bp = p.bp;
-  const float mp_ = p.mp;
-  const bool c3 = p.c3c4 == 1;
+  const float bp = p.bp();
+  const float mp_ = p.mp();
+  const bool c3 = p.c3c4() == 1;
 
-  const float fnf = mn(foln / mx(p.folnmx, MPE), 1.0f);
+  const float fnf = mn(foln / mx(p.folnmx(), MPE), 1.0f);
   const float tc = tv - TFRZ;
   const float ppf = 4.6f * apar;
-  const float j = ppf * p.qe25;
+  const float j = ppf * p.qe25();
   const float q10 = divc(tc - 25.0f, 10.0f);
-  const float kc = p.kc25 * powf(p.akc, q10);
-  const float ko = p.ko25 * powf(p.ako, q10);
+  const float kc = p.kc25() * powf(p.akc(), q10);
+  const float ko = p.ko25() * powf(p.ako(), q10);
   const float awc = kc * (1.0f + o2 / ko);
   const float cp = 0.5f * kc / ko * o2 * 0.21f;
   const float vcmx =
-      p.vcmx25 /
+      p.vcmx25() /
       (1.0f + expf((-2.2e5f + 710.0f * (tc + TFRZ)) / (8.314f * (tc + TFRZ)))) *
-      fnf * btran * powf(p.avcmx, q10);
+      fnf * btran * powf(p.avcmx(), q10);
   const float rlb = rb / cf;
 
   const float cierr = 5.0e-2f;
@@ -356,17 +356,17 @@ NM_FN void stomata(const ParamPt& p, float igs, float sfcprs, float sfctmp,
 }
 
 // Jarvis canopy resistance
-NM_FN void canres(const ParamPt& p, float sfcprs, float tv, float par,
+NM_INL void canres(const ParamRef& p, float sfcprs, float tv, float par,
                   float eah, float btran, float& rs_out, float& psn_out) {
   float q2 = 0.622f * eah / (sfcprs - 0.378f * eah);
   q2 = q2 / (1.0f + q2);
   const float q2sat = calhum_q2sat(tv, sfcprs);
-  const float ff = 2.0f * par / p.rgl;
-  const float rcs = clipf((ff + p.rsmin / p.rsmax) / (1.0f + ff), 0.0001f, 1.0f);
-  const float rct = clipf(1.0f - 0.0016f * sq(p.topt - tv), 0.0001f, 1.0f);
+  const float ff = 2.0f * par / p.rgl();
+  const float rcs = clipf((ff + p.rsmin() / p.rsmax()) / (1.0f + ff), 0.0001f, 1.0f);
+  const float rct = clipf(1.0f - 0.0016f * sq(p.topt() - tv), 0.0001f, 1.0f);
   const float rcq =
-      clipf(rdiv(1.0f, 1.0f + p.hs * mx(q2sat - q2, 0.0f)), 0.01f, 1.0f);
-  rs_out = p.rsmin / (rcs * rct * rcq * mx(btran, MPE));
+      clipf(rdiv(1.0f, 1.0f + p.hs() * mx(q2sat - q2, 0.0f)), 0.01f, 1.0f);
+  rs_out = p.rsmin() / (rcs * rct * rcq * mx(btran, MPE));
   psn_out = 0.0f;
 }
 

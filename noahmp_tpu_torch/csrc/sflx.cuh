@@ -1,9 +1,22 @@
 // One Noah-MP timestep of one land column, plus the conservation
-// diagnostics; counterpart of physics/sflx.py:step_columns.
+// diagnostics; counterpart of physics/sflx.py:step_columns, cut into the
+// stages that the CUDA kernels (column.cu) and the host build
+// (column_host.cpp) walk in this order:
+//
+//   kPrologue  atm, phenology, thermal properties, radiation and the
+//              part of the energy balance that both tiles share
+//   kVegeTile  the vegetated tile's Newton iterations   } independent:
+//   kBareTile  the bare tile's Newton iteration         } separate warps
+//   kGround    tile aggregation, snow/soil temperatures, phase change
+//   kWater     canopy, snow and soil water; the water residual
+//
+// A stage reads its inputs from the step's arrays where it uses them,
+// stores each output leaf where it is final, and passes the rest to the
+// later stages through the seam (column_io.cuh).
 #pragma once
 
 #include "atm.cuh"
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 #include "energy.cuh"
 #include "phenology.cuh"
@@ -11,194 +24,165 @@
 
 namespace nm {
 
-NM_FN void column_step(const ParamPt& p, const GenScalars& gen,
-                       const ClassScalars& cls, const OptionSet& opt, float dt,
-                       const StaticPt& sc, const ForcingPt& fo,
-                       const StatePt& st, StatePt& ns, FluxPt& fx) {
-  AtmOut a;
-  atm(fo.sfcprs, fo.sfctmp, fo.q2, fo.prcp, fo.soldn, fo.cosz, a);
+enum Stage { kPrologue = 0, kVegeTile, kBareTile, kGround, kWater, kNumStages };
 
-  // layer thickness from zsnso
-  float dzsnso[NLEVELS], dzsnow[MSNOW];
-#pragma unroll
-  for (int k = 0; k < NLEVELS; ++k) {
-    const float d = ((k == 0) ? 0.0f : st.zsnso[k - 1]) - st.zsnso[k];
-    dzsnso[k] = (k >= MSNOW - st.nsnow) ? d : 0.0f;
-  }
+NM_INL void stage_prologue(const Point& q) {
+  const ColumnArgs& a = q.a;
+  const float sfcprs = q.fo.sfcprs(), sfctmp = q.fo.sfctmp();
+
+  AtmOut at;
+  atm(sfcprs, sfctmp, q.fo.q2(), q.fo.prcp(), q.fo.soldn(), q.fo.cosz(), at);
+
+  const int nsnow = q.st.nsnow();
+  float zsnso[NLEVELS], dzsnso[NLEVELS];
+  q.st.zsnso(zsnso);
+  layer_thickness(zsnso, nsnow, dzsnso);
+
+  const int lutyp = q.sc.lutyp();
+  PhenologyOut ph;
+  phenology(q.p, a.cls, lutyp, q.st.snowh(), q.st.tv(), q.sc.lat(),
+            q.fo.yearlen(), q.fo.julian(), q.st.lai(), q.st.sai(), a.opt.veg,
+            ph);
+  const float fveg =
+      green_fraction(a.cls, lutyp, q.sc.shdfac(), q.sc.shdmax(), ph.lai,
+                     ph.sai, ph.elai, ph.esai, a.opt.veg);
+
+  energy_prologue(q, nsnow, dzsnso, at.rhoair, at.thair, at.eair, at.solad,
+                  at.solai, at.swdown, ph.igs, ph.htop, ph.elai, ph.esai,
+                  fveg);
+
+  q.ns.lai(ph.lai);
+  q.ns.sai(ph.sai);
+  q.fx.nee(0.0f);
+  q.fx.gpp(0.0f);
+  q.fx.npp(0.0f);
+}
+
+NM_INL void stage_water(const Point& q) {
+  const ColumnArgs& a = q.a;
+  const Seam& sm = q.sm;
+  const float dt = a.dt;
+  const int lutyp = q.sc.lutyp(), ist = q.sc.ist();
+  const int nsnow = q.st.nsnow();
+  const float prcp = q.fo.prcp();
+  const float tv0 = q.st.tv(), tg0 = q.st.tg();
+  const float canliq = q.st.canliq(), canice = q.st.canice();
+  const float wa = q.st.wa();
+
+  float zsoil[NSOIL], zsnso[NLEVELS], dzsnso[NLEVELS], dzsnow[MSNOW];
+  q.sc.zsoil(zsoil);
+  q.st.zsnso(zsnso);
+  layer_thickness(zsnso, nsnow, dzsnso);
 #pragma unroll
   for (int k = 0; k < MSNOW; ++k) dzsnow[k] = dzsnso[k];
 
   // water storage at step begin
   float w[NSOIL];
 #pragma unroll
-  for (int k = 0; k < NSOIL; ++k) w[k] = st.smc[k] * dzsnso[MSNOW + k];
+  for (int k = 0; k < NSOIL; ++k) w[k] = q.st.smc(k) * dzsnso[MSNOW + k];
   const float beg_wb =
-      st.canliq + st.canice + st.sneqv + st.wa + sum_last(w) * 1000.0f;
+      canliq + canice + q.st.sneqv() + wa + sum_last(w) * 1000.0f;
 
-  PhenologyOut ph;
-  phenology(p, cls, sc.lutyp, st.snowh, st.tv, sc.lat, fo.yearlen, fo.julian,
-            st.lai, st.sai, opt.veg, ph);
-  const float fveg = green_fraction(cls, sc.lutyp, sc.shdfac, sc.shdmax, ph.lai,
-                                    ph.sai, ph.elai, ph.esai, opt.veg);
-
-  EnergyOut en;
-  energy(p, gen, cls, opt, dt, st.nsnow, dzsnso, a.rhoair, fo.sfcprs,
-         fo.sfcprs, a.qair, fo.sfctmp, a.thair, fo.lwdn, fo.uu, fo.vv, sc.zlvl,
-         fo.co2air, fo.o2air, a.solad, a.solai, fo.cosz, ph.igs, a.eair,
-         ph.htop, sc.tbot, st.zsnso, sc.zsoil, ph.elai, ph.esai, st.fwet,
-         fo.foln, fveg, st.qsnow, st.canliq, st.canice, st.tv, st.tg, st.stc,
-         st.snowh, st.eah, st.tah, st.sneqvo, st.sneqv, st.swc, st.smc,
-         st.snice, st.snliq, st.albold, st.cm, st.ch, st.tauss, st.qsfc,
-         sc.lutyp, sc.isc, sc.ist, sc.ice, en);
-
-  const float sneqvo_new = en.sneqv;
-  const float qvap = mx(en.fgev / en.latheag, 0.0f);
-  const float qdew = fabsf(mn(en.fgev / en.latheag, 0.0f));
+  const float qvap = sm.qvap(), qdew = sm.qdew();
   const float edir = qvap - qdew;
-
+  float btrani[NSOIL], ficeold[MSNOW], snice[MSNOW], snliq[MSNOW];
+  float stc[NLEVELS], swc[NSOIL], smc[NSOIL];
   int imelt_snow[MSNOW];
-#pragma unroll
-  for (int k = 0; k < MSNOW; ++k) imelt_snow[k] = en.imelt[k];
+  sm.get_btrani(btrani);
+  q.st.ficeold(ficeold);
+  sm.get_g_snice(snice);
+  sm.get_g_snliq(snliq);
+  sm.get_g_stc(stc);
+  sm.get_g_swc(swc);
+  sm.get_g_smc(smc);
+  sm.get_g_imelt(imelt_snow);
 
   WaterOut wt;
-  water(p, gen, cls, opt, sc.lutyp, sc.ist, dt, sc.zsoil, dzsnow, imelt_snow,
-        fo.uu, fo.vv, en.fcev, en.fctr, a.qprecc, a.qprecl, ph.elai, ph.esai,
-        fo.sfctmp, qvap, qdew, en.btrani, st.ficeold, en.ponding, en.tg, fveg,
-        en.frozen_canopy, en.frozen_ground, st.nsnow, st.canliq, st.canice,
-        en.tv, en.snowh, en.sneqv, en.snice, en.snliq, en.stc, en.swc, en.smc,
-        st.zwt, st.wa, st.wt, st.wslake, wt);
+  water(q.p, a.gen, a.cls, a.opt, lutyp, ist, dt, zsoil, dzsnow, imelt_snow,
+        q.fo.uu(), q.fo.vv(), q.fx.get_fcev(), q.fx.get_fctr(), 0.10f * prcp,
+        0.90f * prcp, sm.elai(), sm.esai(), q.fo.sfctmp(), qvap, qdew, btrani,
+        ficeold, q.fx.get_ponding(), q.ns.get_tg(), q.fx.get_fveg(),
+        tv0 <= TFRZ, tg0 <= TFRZ, nsnow, canliq, canice, sm.v_tv(),
+        sm.g_snowh(), q.ns.get_sneqvo(), snice, snliq, stc, swc, smc,
+        q.st.zwt(), wa, q.st.wt(), q.st.wslake(), wt);
 
-  // conservation diagnostics; returned, not asserted
-  const float errsw = a.swdown - (en.fsa + en.fsr);
-  const float erreng = en.sav + en.sag - (en.fira + en.fsh + en.fcev + en.fgev +
-                                          en.fctr + en.ssoil);
+  // water residual; returned, not asserted
 #pragma unroll
   for (int k = 0; k < NSOIL; ++k) w[k] = wt.smc[k] * wt.dzsnso[MSNOW + k];
   const float end_wb =
       wt.canliq + wt.canice + wt.sneqv + wt.wa + sum_last(w) * 1000.0f;
   float errwat = end_wb - beg_wb -
-                 (fo.prcp - wt.ecan - wt.etran - edir - wt.runsrf - wt.runsub) * dt;
-  errwat = (sc.ist == 1) ? errwat : 0.0f;
+                 (prcp - wt.ecan - wt.etran - edir - wt.runsrf - wt.runsub) * dt;
+  errwat = (ist == 1) ? errwat : 0.0f;
 
   // urban QSFC override
   const float qfx = wt.etran + wt.ecan + edir;
-  const bool urban = sc.lutyp == cls.isurban;
-  const float qsfc_new = urban ? qfx / a.rhoair * en.ch + a.qair : en.qsfc;
-  const float q2b = urban ? qsfc_new : en.q2b;
+  const bool urban = lutyp == a.cls.isurban;
+  const float qsfc_new =
+      urban ? qfx / sm.rhoair() * q.ns.get_ch() + q.fo.q2() : sm.b_qsfc();
+  const float q2b = urban ? qsfc_new : sm.b_q2b();
 
   // tiny-snow reset
   const bool tiny = (wt.snowh <= 1.0e-6f) || (wt.sneqv <= 1.0e-3f);
 
-  ns.canliq = wt.canliq;
-  ns.canice = wt.canice;
-  ns.tv = wt.tv;
-  ns.eah = en.eah;
-  ns.tah = en.tah;
-  ns.fwet = wt.fwet;
-  ns.lai = ph.lai;
-  ns.sai = ph.sai;
-  ns.tg = en.tg;
-  ns.qsfc = qsfc_new;
-  ns.cm = en.cm;
-  ns.ch = en.ch;
-  ns.nsnow = wt.nsnow;
-  ns.snowh = tiny ? 0.0f : wt.snowh;
-  ns.sneqv = tiny ? 0.0f : wt.sneqv;
-  ns.sneqvo = sneqvo_new;
+  // snow ice fraction for the next step's compaction
+  float ficeold_new[MSNOW];
 #pragma unroll
   for (int k = 0; k < MSNOW; ++k) {
-    ns.snice[k] = wt.snice[k];
-    ns.snliq[k] = wt.snliq[k];
-    // snow ice fraction for the next step's compaction
     const float tot = wt.snice[k] + wt.snliq[k];
-    ns.ficeold[k] = (tot > 0.0f) ? wt.snice[k] / mx(tot, MPE) : 0.0f;
+    ficeold_new[k] = (tot > 0.0f) ? wt.snice[k] / mx(tot, MPE) : 0.0f;
   }
-#pragma unroll
-  for (int k = 0; k < NLEVELS; ++k) {
-    ns.zsnso[k] = wt.zsnso[k];
-    ns.stc[k] = wt.stc[k];
-  }
-  ns.albold = en.albold;
-  ns.tauss = en.tauss;
-  ns.qsnow = wt.qsnow;
-#pragma unroll
-  for (int k = 0; k < NSOIL; ++k) {
-    ns.swc[k] = wt.swc[k];
-    ns.smc[k] = wt.smc[k];
-  }
-  ns.zwt = wt.zwt;
-  ns.wa = wt.wa;
-  ns.wt = wt.wt;
-  ns.wslake = wt.wslake;
-  // the carbon pools pass through: opt_veg 2 and 5 are not built
-  ns.lfmass = st.lfmass;
-  ns.rtmass = st.rtmass;
-  ns.stmass = st.stmass;
-  ns.wood = st.wood;
-  ns.stblcp = st.stblcp;
-  ns.fastcp = st.fastcp;
 
-  fx.fsa = en.fsa;
-  fx.fsr = en.fsr;
-  fx.fira = en.fira;
-  fx.fsh = en.fsh;
-  fx.fcev = en.fcev;
-  fx.fgev = en.fgev;
-  fx.fctr = en.fctr;
-  fx.ssoil = en.ssoil;
-  fx.trad = en.trad;
-  fx.ecan = wt.ecan;
-  fx.etran = wt.etran;
-  fx.edir = edir;
-  fx.runsrf = wt.runsrf;
-  fx.runsub = wt.runsub;
-  fx.apar = en.apar;
-  fx.psn = en.psn;
-  fx.sav = en.sav;
-  fx.sag = en.sag;
-  fx.fsno = en.fsno;
-  fx.nee = 0.0f;
-  fx.gpp = 0.0f;
-  fx.npp = 0.0f;
-  fx.fveg = fveg;
-  fx.albedo = (a.swdown != 0.0f) ? en.fsr / mx(a.swdown, MPE) : -999.9f;
-  fx.qsnbot = wt.qsnbot;
-  fx.ponding = en.ponding;
-  fx.rssun = en.rssun;
-  fx.rssha = en.rssha;
-  fx.bgap = en.bgap;
-  fx.wgap = en.wgap;
-  fx.tgv = en.tgv;
-  fx.tgb = en.tgb;
-  fx.chv = en.chv;
-  fx.chb = en.chb;
-  fx.emissi = en.emissi;
-  fx.t2mv = en.t2mv;
-  fx.t2mb = en.t2mb;
-  fx.q2v = en.q2v;
-  fx.q2b = q2b;
-  fx.fpice = wt.fpice;
-  fx.irc = en.irc;
-  fx.irg = en.irg;
-  fx.irb = en.irb;
-  fx.shc = en.shc;
-  fx.shg = en.shg;
-  fx.shb = en.shb;
-  fx.evc = en.evc;
-  fx.evg = en.evg;
-  fx.evb = en.evb;
-  fx.ghv = en.ghv;
-  fx.ghb = en.ghb;
-  fx.tr = en.tr;
-  fx.chleaf = en.chleaf;
-  fx.chuc = en.chuc;
-  fx.chv2 = en.chv2;
-  fx.chb2 = en.chb2;
-  fx.ponding1 = wt.ponding1;
-  fx.ponding2 = wt.ponding2;
-  fx.errwat = errwat;
-  fx.errsw = errsw;
-  fx.erreng = erreng;
+  const StateOut& ns = q.ns;
+  ns.canliq(wt.canliq);
+  ns.canice(wt.canice);
+  ns.tv(wt.tv);
+  ns.fwet(wt.fwet);
+  ns.qsfc(qsfc_new);
+  ns.nsnow(wt.nsnow);
+  ns.snowh(tiny ? 0.0f : wt.snowh);
+  ns.sneqv(tiny ? 0.0f : wt.sneqv);
+  ns.snice(wt.snice);
+  ns.snliq(wt.snliq);
+  ns.zsnso(wt.zsnso);
+  ns.ficeold(ficeold_new);
+  ns.qsnow(wt.qsnow);
+  ns.stc(wt.stc);
+  ns.swc(wt.swc);
+  ns.smc(wt.smc);
+  ns.zwt(wt.zwt);
+  ns.wa(wt.wa);
+  ns.wt(wt.wt);
+  ns.wslake(wt.wslake);
+  // the carbon pools pass through: opt_veg 2 and 5 are not built
+  ns.lfmass(q.st.lfmass());
+  ns.rtmass(q.st.rtmass());
+  ns.stmass(q.st.stmass());
+  ns.wood(q.st.wood());
+  ns.stblcp(q.st.stblcp());
+  ns.fastcp(q.st.fastcp());
+
+  const FluxOut& fx = q.fx;
+  fx.ecan(wt.ecan);
+  fx.etran(wt.etran);
+  fx.runsrf(wt.runsrf);
+  fx.runsub(wt.runsub);
+  fx.qsnbot(wt.qsnbot);
+  fx.q2b(q2b);
+  fx.fpice(wt.fpice);
+  fx.ponding1(wt.ponding1);
+  fx.ponding2(wt.ponding2);
+  fx.errwat(errwat);
+}
+
+NM_INL void run_stage(int stage, const Point& q) {
+  switch (stage) {
+    case kPrologue: stage_prologue(q); break;
+    case kVegeTile: energy_vege_tile(q); break;
+    case kBareTile: energy_bare_tile(q); break;
+    case kGround: energy_ground(q); break;
+    default: stage_water(q); break;
+  }
 }
 
 }  // namespace nm

@@ -53,7 +53,7 @@ NM_INL void combo(float dz1, float liq1, float ice1, float t1, float dz2,
   }
 }
 
-NM_FN void snowfall(Pack& p, float dt, float qsnow, float snowhin,
+NM_INL void snowfall(Pack& p, float dt, float qsnow, float snowhin,
                     float sfctmp) {
   const int n0 = p.nsnow;
   const bool no_layer = (n0 == 0) && (qsnow > 0.0f);
@@ -84,7 +84,7 @@ NM_FN void snowfall(Pack& p, float dt, float qsnow, float snowhin,
   p.snowh = snowh;
 }
 
-NM_FN void compact(Pack& p, float dt, const int (&imelt3)[MSNOW],
+NM_INL void compact(Pack& p, float dt, const int (&imelt3)[MSNOW],
                    const float (&ficeold)[MSNOW]) {
   const float c2 = 21.0e-3f, c3 = 2.5e-6f, c4 = 0.04f, c5 = 2.0f;
   const float dm = 100.0f, eta0 = 0.8e6f;
@@ -129,7 +129,7 @@ NM_INL float dzmin_at(int m) {
   return (m >= 2) ? 0.1f : 0.025f;
 }
 
-NM_FN void combine(Pack& p) {
+NM_INL void combine(Pack& p) {
   const int n0 = p.nsnow;
   const int top0 = MSNOW - n0;
   int nsnow = n0;
@@ -290,7 +290,7 @@ NM_INL void vperm3(const float (&x)[MSNOW], const int (&idx)[MSNOW],
 }
 
 // Split too-thick layers back up to MSNOW layers, on a top-aligned copy
-NM_FN void divide(Pack& p) {
+NM_INL void divide(Pack& p) {
   const int n = p.nsnow;
   const int top = MSNOW - n;
   int idx[MSNOW];
@@ -410,7 +410,7 @@ NM_FN void divide(Pack& p) {
 
 // Sublimation/frost on the pack and gravity drainage of liquid.
 // Returns qsnbot.
-NM_FN float snowh2o(Pack& p, float dt, float qsnfro, float qsnsub,
+NM_INL float snowh2o(Pack& p, float dt, float qsnfro, float qsnsub,
                     float qrain, float ssi) {
   // no snow at all: frost/sublimation acts on the soil ice
   const bool none_ = p.sneqv == 0.0f;

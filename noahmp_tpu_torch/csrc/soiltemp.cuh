@@ -4,7 +4,7 @@
 // snow slots, as the plain version passes them.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 #include "tridiag.cuh"
 
@@ -12,7 +12,7 @@ namespace nm {
 
 constexpr int FRH2O_TRIPS = 10;
 
-NM_FN void tsnosoi(float dt, int nsnow, float tbot, float zbot,
+NM_INL void tsnosoi(float dt, int nsnow, float tbot, float zbot,
                    const float (&zs)[NLEVELS], float ssoil,
                    const float (&df)[NLEVELS], const float (&hcpct)[NLEVELS],
                    float snowh, const float (&stc)[NLEVELS], int opt_tbot,
@@ -77,11 +77,11 @@ NM_FN void tsnosoi(float dt, int nsnow, float tbot, float zbot,
 // Supercooled liquid water of one soil layer: Koren99 Newton iteration
 // in log space with the Flerchinger fallback.  The loop ends at the
 // first converged trip; the masked plain version keeps swl from there.
-NM_FN float frh2o(const ParamPt& p, float tkelv, float smc, float swc) {
+NM_INL float frh2o(const ParamRef& p, float tkelv, float smc, float swc) {
   const float ck = 8.0f, blim = 5.5f, err = 0.005f;
-  const float bx = mn(p.bexp, blim);
-  const float psisat = p.psisat;
-  const float smcmax = p.smcmax;
+  const float bx = mn(p.bexp(), blim);
+  const float psisat = p.psisat();
+  const float smcmax = p.smcmax();
 
   const float swl0 = clipf(smc - swc, 0.0f, smc - 0.02f);
   const float tk_safe = mn(tkelv, F32(273.15 - 1.0e-3));
@@ -124,7 +124,7 @@ struct PhaseChangeOut {
   float ponding;
 };
 
-NM_FN void phasechange(const ParamPt& p, int ist, float dt, int nsnow,
+NM_INL void phasechange(const ParamRef& p, int ist, float dt, int nsnow,
                        const float (&fact)[NLEVELS],
                        const float (&dz)[NLEVELS],
                        const float (&stc_in)[NLEVELS],
@@ -162,7 +162,7 @@ NM_FN void phasechange(const ParamPt& p, int ist, float dt, int nsnow,
     float sc;
     if (opt_frz == 1) {
       const float smp = HFUS * (TFRZ - stc[k]) / (GRAV * stc[k]);
-      sc = p.smcmax * powf(mx(smp, MPE) / p.psisat, rdiv(-1.0f, p.bexp));
+      sc = p.smcmax() * powf(mx(smp, MPE) / p.psisat(), rdiv(-1.0f, p.bexp()));
       sc = (stc[k] < TFRZ) ? sc : 0.0f;
     } else {
       sc = frh2o(p, stc[k], smc[s], swc[s]);

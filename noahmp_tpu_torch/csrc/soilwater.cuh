@@ -4,40 +4,40 @@
 // goes through thomas_solve<4> (tridiag.cuh).
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 #include "tridiag.cuh"
 
 namespace nm {
 
 // Diffusivity/conductivity scaled by the unfrozen fraction
-NM_INL void wdfcnd1(const ParamPt& p, float smc, float fcr, float& wdf,
+NM_INL void wdfcnd1(const ParamRef& p, float smc, float fcr, float& wdf,
                     float& wcnd) {
-  const float factr = mx(smc / p.smcmax, 0.01f);
-  wdf = p.dwsat * powf(factr, p.bexp + 2.0f);
+  const float factr = mx(smc / p.smcmax(), 0.01f);
+  wdf = p.dwsat() * powf(factr, p.bexp() + 2.0f);
   wdf = wdf * (1.0f - fcr);
-  wcnd = p.dksat * powf(factr, 2.0f * p.bexp + 3.0f);
+  wcnd = p.dksat() * powf(factr, 2.0f * p.bexp() + 3.0f);
   wcnd = wcnd * (1.0f - fcr);
 }
 
 // Diffusivity with the ice-weighted blend
-NM_INL void wdfcnd2(const ParamPt& p, float smc, float sice, float& wdf,
+NM_INL void wdfcnd2(const ParamRef& p, float smc, float sice, float& wdf,
                     float& wcnd) {
-  const float expon = p.bexp + 2.0f;
-  const float factr = mx(smc / p.smcmax, 0.01f);
-  wdf = p.dwsat * powf(factr, expon);
+  const float expon = p.bexp() + 2.0f;
+  const float factr = mx(smc / p.smcmax(), 0.01f);
+  wdf = p.dwsat() * powf(factr, expon);
   const float vkwgt = rdiv(1.0f, 1.0f + cube(500.0f * sice));
   const float wdf_ice =
-      vkwgt * wdf + (1.0f - vkwgt) * p.dwsat * powf(rdiv(0.2f, p.smcmax), expon);
+      vkwgt * wdf + (1.0f - vkwgt) * p.dwsat() * powf(rdiv(0.2f, p.smcmax()), expon);
   if (sice > 0.0f) wdf = wdf_ice;
-  wcnd = p.dksat * powf(factr, 2.0f * p.bexp + 3.0f);
+  wcnd = p.dksat() * powf(factr, 2.0f * p.bexp() + 3.0f);
 }
 
 // Equilibrium water-table depth on a 100-layer fine grid
-NM_FN float zwteq(const ParamPt& p, const float (&zsoil)[NSOIL],
+NM_INL float zwteq(const ParamRef& p, const float (&zsoil)[NSOIL],
                   const float (&dzsoil)[NSOIL], const float (&swc)[NSOIL]) {
   constexpr int nfine = 100;
-  const float smcmax = p.smcmax;
+  const float smcmax = p.smcmax();
   const float zbot = zsoil[NSOIL - 1];
   float w[NSOIL];
 #pragma unroll
@@ -49,9 +49,9 @@ NM_FN float zwteq(const ParamPt& p, const float (&zsoil)[NSOIL],
   int first = nfine;
   for (int k = 0; k < nfine; ++k) {
     const float zfine = static_cast<float>(k + 1) * dzfine;
-    const float temp = 1.0f + (zwt0 - zfine) / p.psisat;
+    const float temp = 1.0f + (zwt0 - zfine) / p.psisat();
     const float incr =
-        smcmax * (1.0f - powf(mx(temp, MPE), rdiv(-1.0f, p.bexp))) * dzfine;
+        smcmax * (1.0f - powf(mx(temp, MPE), rdiv(-1.0f, p.bexp()))) * dzfine;
     wd2 = (k == 0) ? incr : wd2 + incr;
     if (first == nfine && fabsf(wd2 - wd1) <= 0.01f) first = k;
   }
@@ -60,27 +60,27 @@ NM_FN float zwteq(const ParamPt& p, const float (&zsoil)[NSOIL],
 }
 
 // Schaake96 maximum infiltration; qinfil and runsrf in m/s
-NM_FN void infil(const ParamPt& p, float dt, const float (&zsoil)[NSOIL],
+NM_INL void infil(const ParamRef& p, float dt, const float (&zsoil)[NSOIL],
                  const float (&swc)[NSOIL], const float (&sice)[NSOIL],
                  float sicemax, float qinsrf, float& qinfil, float& runsrf) {
   const float dt1 = divc(dt, 86400.0f);
-  const float smcav = p.smcmax - p.smcwlt;
+  const float smcav = p.smcmax() - p.smcwlt();
   float di[NSOIL], dm[NSOIL];
 #pragma unroll
   for (int k = 0; k < NSOIL; ++k) {
     const float dz = ((k == 0) ? 0.0f : zsoil[k - 1]) - zsoil[k];
     di[k] = dz * sice[k];
-    dm[k] = dz * smcav * (1.0f - (swc[k] + sice[k] - p.smcwlt) / smcav);
+    dm[k] = dz * smcav * (1.0f - (swc[k] + sice[k] - p.smcwlt()) / smcav);
   }
   const float dice = sum_last(di);
   const float dd = sum_last(dm);
-  const float val = 1.0f - expf(-p.kdt * dt1);
+  const float val = 1.0f - expf(-p.kdt() * dt1);
   const float ddt = dd * val;
   const float px = mx(qinsrf * dt, 0.0f);
   float infmax = (px * (ddt / mx(px + ddt, MPE))) / dt;
 
   // frozen-soil correction: truncated series for CVFRZ = 3
-  const float acrt = 3.0f * p.frzx / mx(dice, MPE);
+  const float acrt = 3.0f * p.frzx() / mx(dice, MPE);
   const float series = 1.0f + acrt + divc(acrt * acrt, 2.0f);
   const float fcr = (dice > 1.0e-2f) ? 1.0f - expf(-acrt) * series : 1.0f;
   infmax = infmax * fcr;
@@ -98,7 +98,7 @@ NM_FN void infil(const ParamPt& p, float dt, const float (&zsoil)[NSOIL],
 
 // One Richards sub-step: assemble the tridiagonal (srt), scale by the
 // sub-step, solve, and push the saturation excess up (sstep)
-NM_FN void richards_substep(const ParamPt& p, const float (&zsoil)[NSOIL],
+NM_INL void richards_substep(const ParamRef& p, const float (&zsoil)[NSOIL],
                             const float (&dzsoil)[NSOIL], float qinfil,
                             const float (&etrani)[NSOIL], float qseva,
                             const float (&sice)[NSOIL],
@@ -132,7 +132,7 @@ NM_FN void richards_substep(const ParamPt& p, const float (&zsoil)[NSOIL],
   if (opt_run == 1 || opt_run == 2) {
     qdrain = 0.0f;
   } else if (opt_run == 3) {
-    qdrain = p.slope * wcnd[NSOIL - 1];
+    qdrain = p.slope() * wcnd[NSOIL - 1];
   } else {
     qdrain = (1.0f - fcrmax) * wcnd[NSOIL - 1];
   }
@@ -167,7 +167,7 @@ NM_FN void richards_substep(const ParamPt& p, const float (&zsoil)[NSOIL],
 #pragma unroll
   for (int k = 0; k < NSOIL; ++k) {
     swc[k] = swc[k] + delta[k];
-    ep[k] = mx(p.smcmax - sice[k], 1.0e-4f);
+    ep[k] = mx(p.smcmax() - sice[k], 1.0e-4f);
   }
   // push the saturation excess upward, bottom to top
 #pragma unroll
@@ -204,14 +204,14 @@ struct SoilH2OOut {
   float fcrmax;
 };
 
-NM_FN void soilh2o(const ParamPt& p, const GenScalars& gen,
+NM_INL void soilh2o(const ParamRef& p, const GenScalars& gen,
                    const ClassScalars& cls, int lutyp, float dt,
                    const float (&zsoil)[NSOIL], const float (&dzsoil)[NSOIL],
                    float qinsrf, float qseva, const float (&etrani)[NSOIL],
                    const float (&sice)[NSOIL], const float (&swc_in)[NSOIL],
                    const float (&smc_in)[NSOIL], float zwt, int opt_run,
                    int opt_inf, SoilH2OOut& o) {
-  const float smcmax = p.smcmax;
+  const float smcmax = p.smcmax();
   const float a_pow = 4.0f;
   float swc[NSOIL], smc[NSOIL], fcr[NSOIL], rs[NSOIL];
 
@@ -339,13 +339,13 @@ struct GroundwaterOut {
 };
 
 // SIMGM unconfined aquifer (opt_run 1)
-NM_FN void groundwater(const ParamPt& p, const GenScalars& gen, float dt,
+NM_INL void groundwater(const ParamRef& p, const GenScalars& gen, float dt,
                        const float (&zsoil)[NSOIL], const float (&sice)[NSOIL],
                        const float (&wcnd)[NSOIL], float fcrmax,
                        const float (&swc)[NSOIL], float zwt, float wa, float wt,
                        GroundwaterOut& o) {
   const float rous = 0.2f, cmic = 0.20f;
-  const float smcmax = p.smcmax;
+  const float smcmax = p.smcmax();
   float dzmm[NSOIL], znode[NSOIL], smc[NSOIL], mliq[NSOIL], epore[NSOIL],
       hk[NSOIL];
 #pragma unroll
@@ -370,7 +370,7 @@ NM_FN void groundwater(const ParamPt& p, const GenScalars& gen, float dt,
   const float ratio = vsel(smc, jwt) / smcmax;
   const float s_node = mx(mn(ratio, 1.0f), 0.01f);
   const bool at_clip = ratio <= 0.01f;
-  float smpfz = smpfz_f64(s_node, p.bexp, p.psisat, at_clip);
+  float smpfz = smpfz_f64(s_node, p.bexp(), p.psisat(), at_clip);
   smpfz = mx(cmic * smpfz, -120000.0f);
 
   const float ka = vsel(hk, jwt);

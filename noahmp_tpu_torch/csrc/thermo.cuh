@@ -2,7 +2,7 @@
 // physics/thermo.py.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 
 namespace nm {
@@ -29,7 +29,7 @@ NM_INL float tdfcnd(float smcmax, float quartz, float smc, float swc) {
   return ake * (thksat - thkdry) + thkdry;
 }
 
-NM_FN void thermoprop(const ParamPt& p, const ClassScalars& cls,
+NM_INL void thermoprop(const ParamRef& p, const ClassScalars& cls,
                       const GenScalars& gen, int lutyp, int ist, int nsnow,
                       float dt, const float (&dzsnso)[NLEVELS], float snowh,
                       const float (&snice)[MSNOW], const float (&snliq)[MSNOW],
@@ -49,9 +49,9 @@ NM_FN void thermoprop(const ParamPt& p, const ClassScalars& cls,
 #pragma unroll
   for (int k = 0; k < NSOIL; ++k) {
     const float soilice = smc[k] - swc[k];
-    float hc = swc[k] * CWAT + (1.0f - p.smcmax) * gen.csoil +
-               (p.smcmax - smc[k]) * CPAIR + soilice * CICE;
-    float df = tdfcnd(p.smcmax, p.quartz, smc[k], swc[k]);
+    float hc = swc[k] * CWAT + (1.0f - p.smcmax()) * gen.csoil +
+               (p.smcmax() - smc[k]) * CPAIR + soilice * CICE;
+    float df = tdfcnd(p.smcmax(), p.quartz(), smc[k], swc[k]);
     if (lutyp == cls.isurban) df = 3.24f;
     if (ist == 2) {
       const bool thawed = stc[MSNOW + k] > TFRZ;

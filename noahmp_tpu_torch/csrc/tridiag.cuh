@@ -3,7 +3,7 @@
 // One thread solves one L-row tridiagonal system.  The function is a
 // __device__ inline on plain arrays so that any kernel holding a
 // column's coefficients in registers can call it: the batched solve in
-// tridiag.cu today, a fused column kernel later.
+// tridiag.cu and the ground and water stages of the fused column step.
 //
 // Operation order is that of the plain PyTorch version
 // (kernels/tridiag.py:thomas_plain): p[0] = -c0/b0, q[0] = d0/b0;

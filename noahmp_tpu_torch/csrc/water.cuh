@@ -2,7 +2,7 @@
 // balance; counterpart of physics/water.py.
 #pragma once
 
-#include "column_args.cuh"
+#include "column_io.cuh"
 #include "common.cuh"
 #include "snow.cuh"
 #include "soilwater.cuh"
@@ -16,7 +16,7 @@ struct CanWaterOut {
       fpice;
 };
 
-NM_FN void canwater(const ParamPt& p, float dt, float sfctmp, float uu,
+NM_INL void canwater(const ParamRef& p, float dt, float sfctmp, float uu,
                     float vv, float fcev, float fctr, float qprecc,
                     float qprecl, float elai, float esai, int ist, float tg,
                     float fveg, bool frozen_canopy, float canliq, float canice,
@@ -50,7 +50,7 @@ NM_FN void canwater(const ParamPt& p, float dt, float sfctmp, float uu,
   const bool has_canopy = vai > 0.0f;
 
   // liquid interception
-  const float maxliq = p.canwmxp * vai;
+  const float maxliq = p.canwmxp() * vai;
   float qintr = fveg * rain * fp;
   qintr = mn(qintr, (maxliq - canliq) / dt *
                         (1.0f - expf(-rain * dt / mx(maxliq, MPE))));
@@ -141,7 +141,7 @@ struct SnowWaterOut {
 
 // Snowpack driver.  dzsnow: the snow layer thicknesses of the previous
 // dzsnso
-NM_FN void snowwater_full(const GenScalars& gen, float dt,
+NM_INL void snowwater_full(const GenScalars& gen, float dt,
                           const float (&zsoil)[NSOIL],
                           const float (&dzsnow)[MSNOW],
                           const int (&imelt_snow)[MSNOW], float sfctmp,
@@ -243,7 +243,7 @@ struct WaterOut {
   float ecan, etran, runsrf, runsub, qsnow, ponding1, ponding2, qsnbot, fpice;
 };
 
-NM_FN void water(const ParamPt& p, const GenScalars& gen,
+NM_INL void water(const ParamRef& p, const GenScalars& gen,
                  const ClassScalars& cls, const OptionSet& opt, int lutyp,
                  int ist, float dt, const float (&zsoil)[NSOIL],
                  const float (&dzsnow)[MSNOW], const int (&imelt_snow)[MSNOW],

@@ -4,8 +4,8 @@
 ``noahmp_tpu/driver/step.py:make_step`` (layout "major": the land-point
 axis leads): the eager step, one CUDA kernel per tensor operation.
 ``make_fused_step`` is the counterpart of ``make_fused_step`` there: the
-whole step of every point in one launch of the hand-written column
-kernel (``kernels/column.py``).  PyTorch runs eagerly, so there is
+whole step of every point through the hand-written column kernels, four
+launches enqueued by one C call (``kernels/column.py``).  PyTorch runs eagerly, so there is
 nothing to trace or compile here; building a step checks the options,
 moves the tables and fixes the device.
 """
@@ -59,7 +59,8 @@ def make_step(params, opts, dt, device=None):
 
 def make_fused_step(params, opts, dt, static, device=None):
     """Build step(static_ignored, forcing, state) -> (state, flux) that
-    advances every land point in one launch of the fused column kernel.
+    advances every land point through the fused column kernels: four
+    launches a step, enqueued by one C call.
 
     The table lookups are gathered once, here, from ``static``'s class
     indices; the domain is therefore fixed when the step is built, and
@@ -67,9 +68,10 @@ def make_fused_step(params, opts, dt, static, device=None):
     can stand wherever ``make_step``'s does).  ``device=None`` means the
     card and raises when CUDA is not available.  With ``device="cpu"``
     the step runs the kernel's plain version, ``step_columns`` on the
-    gathered parameters; on the card it launches the kernel and never
+    gathered parameters; on the card it launches the kernels and never
     the plain version.  The returned step raises on tensors that live
-    on another device and contains no host synchronisation.
+    on another device (on the card, on any leaf of wrong device, dtype,
+    shape or layout) and contains no host synchronisation.
 
     On the card the leaves of the returned State are views of one
     allocation and those of the Flux of another: a leaf keeps its whole
@@ -92,10 +94,12 @@ def make_fused_step(params, opts, dt, static, device=None):
     dt_t = torch.tensor(float(dt), dtype=torch.float32, device=device)
 
     def step(_static_ignored, forcing, state):
+        if on_card:
+            # the plan checks device, dtype, shape and layout of every
+            # leaf it does not know already
+            return column_cuda(plan, forcing, state)
         _check_devices((forcing, state), device)
         with torch.no_grad():
-            if on_card:
-                return column_cuda(plan, forcing, state)
             return column_plain(gathered, opts, static, forcing, state, dt_t)
 
     step.params = params

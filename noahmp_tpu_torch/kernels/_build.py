@@ -22,10 +22,12 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# per-source extra flags; both sources must round a product before the
+# per-source extra flags; the kernels must round a product before the
 # add that follows it, as the plain versions do (eager PyTorch never
-# contracts a multiply and an add across two operations)
-EXTRA_FLAGS = {"tridiag": ("--fmad=false",), "column": ("--fmad=false",)}
+# contracts a multiply and an add across two operations), and the probe
+# that prices their operations is built as they are
+EXTRA_FLAGS = {"tridiag": ("--fmad=false",), "column": ("--fmad=false",),
+               "issue_probe": ("--fmad=false",)}
 
 _LIBS = {}
 _LOCK = threading.Lock()

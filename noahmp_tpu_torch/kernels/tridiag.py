@@ -15,11 +15,16 @@ registers, the grid masks ``i < n`` itself (no identity-row padding, no
 copy of the inputs, which the TPU kernel needs for its 1024-point
 blocks), and for L = 4 a row is one 16-byte ``float4`` load and store.
 L = 7 rows are 28 bytes and unaligned, so they load as scalars;
-neighbouring threads still cover one contiguous span.  The recurrence
-is a ``__device__`` function on register arrays (csrc/tridiag.cuh) so
-that a fused column kernel can call it.  The file is compiled with
-``--fmad=false``: the plain version rounds ``a*p`` before adding ``b``,
-and so does the kernel.
+neighbouring threads still cover one contiguous span.  Staging a block's
+L = 7 rows through shared memory in 16-byte pieces was measured beside
+this and was no faster at 65,536 systems (``csrc/tridiag.cu``).  At that
+size the launch itself is a large part of the kernel's 5-6 us;
+``chip_smoke.py`` times an empty kernel of the same grid beside it, and
+both L at 1,048,576 systems, where the byte bound is the honest
+yardstick.  The recurrence is a ``__device__`` function on
+register arrays (csrc/tridiag.cuh) that the fused column kernels call
+too.  The file is compiled with ``--fmad=false``: the plain version
+rounds ``a*p`` before adding ``b``, and so does the kernel.
 """
 
 import ctypes
@@ -62,8 +67,8 @@ def _launcher(rows):
 
 def thomas_cuda(a, b, c, d):
     """Solve (n, L) float32 systems on the card with the hand-written
-    kernel.  Takes contiguous CUDA tensors with L in {4, 7} and raises
-    on anything else; launches on the current stream, does not
+    kernel.  Takes contiguous CUDA tensors with L in {4, 7} (16-byte
+    aligned for L = 4) and raises on anything else; launches on the current stream, does not
     synchronise."""
     for name, t in (("a", a), ("b", b), ("c", c), ("d", d)):
         if not t.is_cuda:
@@ -82,6 +87,9 @@ def thomas_cuda(a, b, c, d):
         raise ValueError(f"thomas_cuda: shape {tuple(a.shape)}, needs "
                          f"(n, L) with L in {_ROWS}")
     n, rows = a.shape
+    if rows == 4 and any(t.data_ptr() % 16 for t in (a, b, c, d)):
+        raise ValueError("thomas_cuda: an L = 4 input does not start on a "
+                         "16-byte boundary (rows move as float4)")
     x = torch.empty_like(a)
     if n == 0:
         return x

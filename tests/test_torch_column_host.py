@@ -1,10 +1,13 @@
-"""The fused kernel's arithmetic, held against the plain step without a
-card: ``csrc/column_host.cpp`` compiles the very headers the CUDA kernel
-is built from as plain C++ (g++, contraction off) and walks them over
-the points in a loop.  Every State and Flux leaf must come out inside
-the step's bars (cases.py) of ``column_plain``, int leaves equal, on all
-five cases, over several steps, and for every option value the fused
-step accepts.
+"""The fused kernels' arithmetic, held against the plain step without a
+card: ``csrc/column_host.cpp`` compiles the very headers the CUDA
+kernels are built from as plain C++ (g++, contraction off) and walks the
+same stages through the same scratch buffer, slab after slab.  Every
+State and Flux leaf must come out inside the step's bars (cases.py) of
+``column_plain``, int leaves equal, on all five cases, over several
+steps, and for every option value the fused step accepts; and the
+staged walk must give the very bits of a single pass in which a point
+runs through every stage before the next point begins, whatever the
+slab size.
 
 This says nothing about the CUDA build, the launch or the card's math
 library; ``chip_smoke.py`` holds the kernel itself against the plain
@@ -58,10 +61,10 @@ def params():
 
 
 def host_step(lib, plan, forcing, state):
-    """What ``column_cuda`` does, with the host build in the kernel's
+    """What ``column_cuda`` does, with the host build in the kernels'
     place."""
-    new_state, flux, outputs = plan.outputs()
-    args = plan.point_to(forcing, state, outputs)
+    args = plan.point_to(forcing, state)
+    new_state, flux = plan.outputs()
     assert lib.noahmp_column_host(ctypes.byref(args)) == 0
     return new_state, flux
 
@@ -128,3 +131,69 @@ def test_host_build_masks_ragged_n(host_lib, params):
         assert tuple(s.stc.shape) == (n, 7) and s.nsnow.dtype == torch.int32
         assert torch.isfinite(s.tg).all() and torch.isfinite(f.fsa).all()
         assert (s.tg == s.tg[0]).all()
+
+
+def _plan(params, case, slab=None):
+    static, forcing, state = to_device(case, "cpu")
+    g = gather_params(params, static.lutyp, static.sltyp, static.isc,
+                      static.slptyp)
+    plan = column.ColumnPlan(g, Options(), DT, static, need_cuda=False)
+    if slab is not None:
+        assert slab <= plan.slab        # the scratch holds plan.slab points
+        plan.args.slab = slab
+    return plan, forcing, state
+
+
+def _bits(state, flux):
+    return {name: leaf.view(np.int32) for tree in (state, flux)
+            for name, leaf in tree_to_numpy(tree).items()}
+
+
+@pytest.mark.parametrize("name", ["uniform"] + sorted(REGIMES))
+def test_staged_walk_is_bit_equal_to_a_single_pass(host_lib, params, name):
+    """All points through stage after stage (one slab) against every
+    point through all stages in turn (slabs of one point), and slabs of
+    three in between: the same bits in all 97 leaves, the poisoned
+    scratch notwithstanding."""
+    case = uniform_case(16) if name == "uniform" else hetero_case(name, 16)
+    results = []
+    for slab in (None, 1, 3):
+        plan, forcing, state = _plan(params, case, slab)
+        plan.scratch.fill_(float("nan"))
+        results.append(_bits(*host_step(host_lib, plan, forcing, state)))
+    for other in results[1:]:
+        for leaf, want in results[0].items():
+            np.testing.assert_array_equal(other[leaf], want, err_msg=leaf)
+
+
+@pytest.mark.parametrize("n, slab", [(5, 4), (1, 1), (11, 4), (11, 10)])
+def test_slab_boundary(host_lib, params, n, slab):
+    """n = slab + 1 and other ragged sizes: the last slab is short, and
+    every point still comes out as in one pass over all of them."""
+    plan, forcing, state = _plan(params, uniform_case(n))
+    whole = _bits(*host_step(host_lib, plan, forcing, state))
+    plan, forcing, state = _plan(params, uniform_case(n), slab)
+    slabs = _bits(*host_step(host_lib, plan, forcing, state))
+    for leaf, want in whole.items():
+        np.testing.assert_array_equal(slabs[leaf], want, err_msg=leaf)
+
+
+def test_host_stage_entry_walks_one_stage(host_lib, params):
+    """The stages one by one through ``noahmp_column_host_stage`` give
+    the whole step; a stage number outside the list is refused."""
+    host_lib.noahmp_column_host_stage.argtypes = [
+        ctypes.POINTER(column._args_type()), ctypes.c_int]
+    host_lib.noahmp_column_host_stage.restype = ctypes.c_int
+    case = hetero_case("cold_snow", 8)
+    plan, forcing, state = _plan(params, case)
+    whole = _bits(*host_step(host_lib, plan, forcing, state))
+    plan, forcing, state = _plan(params, case)
+    args = plan.point_to(forcing, state)
+    new_state, flux = plan.outputs()
+    for stage in range(5):
+        assert host_lib.noahmp_column_host_stage(ctypes.byref(args),
+                                                 stage) == 0
+    assert host_lib.noahmp_column_host_stage(ctypes.byref(args), 5) != 0
+    for leaf, want in whole.items():
+        np.testing.assert_array_equal(_bits(new_state, flux)[leaf], want,
+                                      err_msg=leaf)

@@ -49,6 +49,38 @@ def test_header_counts():
     assert ctypes.sizeof(args) < 4096
 
 
+def test_seam_list_matches_python_side():
+    """The words that cross between the stages: the header's X-macro
+    list against ``SEAM_FIELDS``, name by name and width by width."""
+    assert tuple((n, w) for n, _d, w in HEAD["SEAM"]) == column.SEAM_FIELDS
+    assert column.SEAM_WORDS == sum(w for _n, _d, w in HEAD["SEAM"]) == 87
+    names = [n for n, _w in column.SEAM_FIELDS]
+    assert len(set(names)) == len(names)
+    ints = {n for n, d, _w in HEAD["SEAM"] if d == torch.int32}
+    assert ints == {"g_imelt"}
+    # no seam word shadows an argument leaf's name in the accessors
+    leaves = {n for key in ("STATIC", "FORCING", "STATE", "FLUX", "PARAM")
+              for n, _d, _w in HEAD[key]}
+    assert not leaves & {"get_" + n for n in names}
+
+
+def test_seam_mismatch_is_refused(monkeypatch):
+    monkeypatch.setattr(column, "SEAM_FIELDS", column.SEAM_FIELDS[:-1])
+    with pytest.raises(RuntimeError, match="NM_SEAM_FIELDS"):
+        column.check_layout()
+
+
+def test_launches_and_slabs():
+    assert column.STAGES == ("prologue", "flux", "ground", "water")
+    assert column.LAUNCHES_PER_STEP == 4
+    slab = column.SLAB_POINTS
+    assert column.device_launches(1) == column.device_launches(slab) == 4
+    assert column.device_launches(slab + 1) == 8
+    args = column._args_type()
+    assert [f[0] for f in args._fields_][:5] == ["in_", "out", "scratch",
+                                                  "slab", "n"]
+
+
 def test_words_per_point():
     """What a point moves: 90 words of state, forcing and static in, 121
     out, beside the gathered parameters."""

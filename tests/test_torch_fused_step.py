@@ -20,6 +20,7 @@ from noahmp_tpu_torch.cases import (FLUX_BAR, FLUX_CEILING, REGIMES,
                                     hetero_case, scaled_err, to_device,
                                     uniform_case)
 from noahmp_tpu_torch.convert import tree_to_numpy
+from noahmp_tpu_torch.kernels import column
 from noahmp_tpu_torch.kernels.column import (ColumnPlan, column_cuda,
                                              column_plain)
 
@@ -159,23 +160,122 @@ def test_column_plan_checks_every_step_leaf():
     step = make_fused_step(load_params(device="cpu"), Options(), DT, static,
                            device="cpu")
     plan = ColumnPlan(step.gathered, Options(), DT, static, need_cuda=False)
-    _s, _f, outputs = plan.outputs()
-    plan.point_to(forcing, state, outputs)
+    plan.point_to(forcing, state)
     with pytest.raises(TypeError, match="state.tg"):
-        plan.point_to(forcing, state._replace(tg=state.tg.double()), outputs)
+        plan.point_to(forcing, state._replace(tg=state.tg.double()))
     with pytest.raises(ValueError, match="forcing.uu"):
-        plan.point_to(forcing._replace(uu=forcing.uu[:2]), state, outputs)
+        plan.point_to(forcing._replace(uu=forcing.uu[:2]), state)
     with pytest.raises(ValueError, match="not contiguous"):
         plan.point_to(forcing,
-                      state._replace(stc=state.stc.t().contiguous().t()),
-                      outputs)
+                      state._replace(stc=state.stc.t().contiguous().t()))
     with pytest.raises(TypeError, match="static.lutyp"):
         ColumnPlan(step.gathered, Options(), DT,
                    static._replace(lutyp=static.lutyp.long()),
                    need_cuda=False)
-    new_state, flux, leaves = plan.outputs()
-    assert len(leaves) == 97 and new_state.nsnow.dtype == torch.int32
+    new_state, flux = plan.outputs()
+    assert len(new_state) + len(flux) == 97
+    assert new_state.nsnow.dtype == torch.int32
     assert tuple(new_state.zsnso.shape) == (4, 7) and flux.fsa.is_contiguous()
+    assert tuple(plan.scratch.shape) == (column.SEAM_WORDS * 4,)
+
+
+@pytest.fixture
+def counted_plan(monkeypatch):
+    """A plan for the host build, with every per-leaf check counted."""
+    static, forcing, state = to_device(hetero_case("cold_snow", 8), "cpu")
+    step = make_fused_step(load_params(device="cpu"), Options(), DT, static,
+                           device="cpu")
+    plan = ColumnPlan(step.gathered, Options(), DT, static, need_cuda=False)
+    checks = []
+    real = column._check_leaf
+
+    def counting(where, name, *args, **kwargs):
+        checks.append(f"{where}.{name}")
+        return real(where, name, *args, **kwargs)
+
+    monkeypatch.setattr(column, "_check_leaf", counting)
+    return plan, forcing, state, checks
+
+
+def _state_pointers(plan):
+    at = len(column.header_layout()["STATIC"]) + len(
+        column.header_layout()["FORCING"])
+    return [plan.args.in_[at + k] for k in range(len(plan_state_fields()))]
+
+
+def plan_state_fields():
+    return [name for name, _d, _w in column.header_layout()["STATE"]]
+
+
+def test_plan_takes_the_state_it_made_without_leaf_checks(counted_plan):
+    """The State a step returns goes into the next step unchecked, and a
+    Forcing that was checked once is not checked again; a first, foreign
+    State is checked leaf by leaf."""
+    plan, forcing, state, checks = counted_plan
+    plan.point_to(forcing, state)
+    assert len(checks) == 15 + 36
+    made, _flux = plan.outputs()
+    del checks[:]
+    plan.point_to(forcing, made)
+    assert checks == []
+    assert _state_pointers(plan) == [t.data_ptr() for t in made]
+    # the first State again: no longer the one the plan knows
+    plan.point_to(forcing, state)
+    assert len(checks) == 36
+    assert _state_pointers(plan) == [t.data_ptr() for t in state]
+
+
+@pytest.mark.parametrize("fault, error, match", [
+    ("dtype", TypeError, "state.tg is torch.float64"),
+    ("shape", ValueError, "state.stc has shape"),
+    ("device", ValueError, "built for"),
+    ("stride", ValueError, "state.stc is not contiguous")])
+def test_plan_still_refuses_one_wrong_leaf_in_a_state_it_made(counted_plan,
+                                                               fault, error,
+                                                               match):
+    plan, forcing, state, _checks = counted_plan
+    plan.point_to(forcing, state)
+    made, _flux = plan.outputs()
+    bad = {"dtype": lambda: made._replace(tg=made.tg.double()),
+           "shape": lambda: made._replace(stc=made.stc[:, :4].contiguous()),
+           "device": lambda: made._replace(tg=made.tg.to("meta")),
+           "stride": lambda: made._replace(
+               stc=made.stc.t().contiguous().t())}[fault]()
+    with pytest.raises(error, match=match):
+        plan.point_to(forcing, bad)
+
+
+def test_plan_checks_a_foreign_leaf_and_a_repointed_leaf(counted_plan):
+    """A State with one leaf replaced is another container: checked in
+    full, and the kernel is pointed at the new leaf.  A leaf of a known
+    State that was given other storage in place is seen too."""
+    plan, forcing, state, checks = counted_plan
+    plan.point_to(forcing, state)
+    made, _flux = plan.outputs()
+    foreign = made._replace(tg=torch.zeros_like(made.tg))
+    del checks[:]
+    plan.point_to(forcing, foreign)
+    assert len(checks) == 36
+    assert _state_pointers(plan) == [t.data_ptr() for t in foreign]
+    made, _flux = plan.outputs()
+    made.tg.set_(torch.zeros(8))
+    del checks[:]
+    plan.point_to(forcing, made)
+    assert len(checks) == 36
+    assert _state_pointers(plan) == [t.data_ptr() for t in made]
+
+
+def test_plan_outputs_point_into_two_allocations(counted_plan):
+    """The 97 output pointers follow from two base addresses: each leaf
+    of the new State and Flux lies where the argument struct says."""
+    plan, forcing, state, _checks = counted_plan
+    plan.point_to(forcing, state)
+    made, flux = plan.outputs()
+    want = [t.data_ptr() for t in made] + [t.data_ptr() for t in flux]
+    assert [plan.args.out[k] for k in range(97)] == want
+    assert made.tg.untyped_storage().data_ptr() == made[0].data_ptr()
+    assert flux.fsa.untyped_storage().data_ptr() != made[0].data_ptr()
+    assert made.nsnow.dtype == torch.int32 and made.stc.shape == (8, 7)
 
 
 def test_column_plain_is_step_columns_on_gathered_parameters():
