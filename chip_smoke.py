@@ -12,10 +12,15 @@ drives the port's two main paths at n = 65,536 land points for a few
 steps on five cases: the eager step (``make_step``, whose two implicit
 solves go through the Thomas kernel) and the fused step
 (``make_fused_step``, the four launches of the column kernels a step,
-enqueued by one C call).  It checks the outputs (finite, conservation residuals under the reference
-model's abort bounds, agreement with the port's own CPU run, every
+enqueued by one C call).  It checks the outputs (finite, conservation
+residuals under the reference model's abort bounds, agreement with the port's own CPU run, every
 option value the fused step accepts), shows from the launch counters
 that each path went through its kernels, and times both steps in turns.
+Then the further paths, each with its own launch counts: the
+carbon pools (``opt_veg`` 2 and 5) through both steps, and the
+multi-step entry points (``make_chunk_step`` over both steps, plain and
+with strict budgets, and ``simulate``), held bit for bit against the same
+number of single steps and checked for host synchronisations.
 
 Each phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}``; then the card's name and power limit; the last
@@ -55,13 +60,16 @@ import time
 import numpy as np
 import torch
 
-from noahmp_tpu_torch import (Options, load_params, make_fused_step,
-                              make_step)
-from noahmp_tpu_torch.cases import (FLUX_BAR, FLUX_CEILING, REGIMES,
-                                    STATE_BAR, STATE_CEILING, bar_ratio,
-                                    hetero_case, scaled_err, to_device,
-                                    uniform_case)
-from noahmp_tpu_torch.convert import tree_to_numpy
+from noahmp_tpu_torch import (STRICT_SENTINEL, Options, load_params,
+                              make_chunk_step, make_fused_step, make_simulate,
+                              make_step, simulate)
+from noahmp_tpu_torch.cases import (CARBON_BAR, CARBON_POOLS, FLUX_BAR,
+                                    FLUX_CEILING, REGIMES, STATE_BAR,
+                                    STATE_CEILING, bar_ratio, carbon_ratios,
+                                    forcing_sequence, hetero_case, scaled_err,
+                                    to_device, uniform_case)
+from noahmp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
+from noahmp_tpu_torch.driver.step import STRICT_TOL
 from noahmp_tpu_torch.kernels import _build, column
 from noahmp_tpu_torch.kernels.column import column_cuda, column_plain
 from noahmp_tpu_torch.kernels.tridiag import (reset_launches, thomas_cuda,
@@ -69,6 +77,7 @@ from noahmp_tpu_torch.kernels.tridiag import (reset_launches, thomas_cuda,
 from noahmp_tpu_torch.kernels._build import load_library
 from noahmp_tpu_torch.numerics.tridiag import masked_identity_rows
 from noahmp_tpu_torch.options import fused_option_sets
+from noahmp_tpu_torch.state import Flux, Forcing
 
 SEED = 0
 N_POINTS = 65536
@@ -78,6 +87,18 @@ LAUNCHES_PER_STEP = {7: 1, 4: 6}    # heat solve; six Richards sub-steps
 N_OPTIONS = 4096                    # points a fused_options comparison
 N_OPS = 8                           # points the operation count walks
 N_LARGE = 1048576                   # where a launch's fixed cost vanishes
+T_CHUNK = 48                        # steps of a chunk over the fused step
+T_CHUNK_EAGER = 4                   # ... and over the eager step
+T_SIMULATE = 8
+T_STRICT, BAD_AT = 16, 5            # strict phase: steps, the corrupt record
+CORRUPT_SOLDN = 1.0e7               # W/m2: breaks the budgets by rounding
+CARBON_OPTIONS = (Options(veg=2, crs=1), Options(veg=5))
+CARBON_CASES = ("uniform", "hetero/warm_day", "hetero/cold_snow")
+NONVEG_CLASSES = (1, 16, 19, 24)    # urban, water, barren, ice (USGS)
+# what an offline driver accumulates: an output-window mean and the
+# three budget residuals
+CHUNK_ACC = (("fsh", "sum"), ("errsw", "absmax"), ("erreng", "absmax"),
+             ("errwat", "absmax"))
 
 # Gathered parameters the physics uses under the default options: what
 # the byte bound counts, since the bound is what the function needs.
@@ -685,6 +706,397 @@ def phase_no_sync(step, params, device, n):
          host_synchronisations=0)
 
 
+def named_case(name, n):
+    if name == "uniform":
+        return uniform_case(n)
+    return hetero_case(name.split("/", 1)[1], n)
+
+
+def check_carbon_outputs(label, static_np, state):
+    """Pools non-negative; LAI and SAI at or above their floors where
+    something grows and, like the pools, zero where nothing does."""
+    s = tree_to_numpy(state)
+    gated = np.isin(static_np["lutyp"], NONVEG_CLASSES)
+    for name in CARBON_POOLS:
+        if not (s[name] >= 0.0).all():
+            raise AssertionError(f"{label}: State.{name} went negative")
+    for name in CARBON_POOLS + ("lai", "sai"):
+        if not (s[name][gated] == 0.0).all():
+            raise AssertionError(f"{label}: State.{name} not zero on a "
+                                 "class without vegetation")
+    if not ((s["lai"][~gated] >= 0.05).all()
+            and (s["sai"][~gated] >= 0.01).all()):
+        raise AssertionError(f"{label}: LAI or SAI under its floor")
+
+
+def compare_carbon(label, old_state, ref, got):
+    """gpp, npp, nee and the six pools' change over the step on their
+    own scale (cases.carbon_ratios): the step's bars are blind to
+    them."""
+    ratios = carbon_ratios(tree_to_numpy(old_state),
+                           tuple(tree_to_numpy(t) for t in ref),
+                           tuple(tree_to_numpy(t) for t in got))
+    leaf = max(ratios, key=ratios.get)
+    if not ratios[leaf] <= 1.0:
+        raise AssertionError(
+            f"{label}: {leaf} is {ratios[leaf]:.3g} times what the carbon "
+            f"bar ({CARBON_BAR} of the leaf's largest magnitude) allows")
+    return ratios[leaf], leaf
+
+
+def phase_carbon(params, params_cpu, device, n, steps, n_cpu=4096):
+    """opt_veg 2 and 5.  The kernels against column_plain from the same
+    state, and the card against the CPU, with the carbon leaves on
+    their own scale; then ``steps`` steps of each case through make_step
+    and make_fused_step, launch counts zeroed just before and read just
+    after."""
+    cpu = torch.device("cpu")
+    checks = []
+    for opts in CARBON_OPTIONS:
+        for name in CARBON_CASES:
+            label = f"veg={opts.veg} {name}"
+            case = named_case(name, n)
+            ref, got = fused_against_plain(params, opts, case, device)
+            err, leaf, ratio, _eq, _n = compare_step(label, ref, got)
+            old = to_device(case, device)[2]
+            c_ratio, c_leaf = compare_carbon(label, old, ref, got)
+            # the card's kernels against the CPU's plain version
+            small = named_case(name, n_cpu)
+            _ref, got_small = fused_against_plain(params, opts, small, device)
+            static, forcing, state = to_device(small, cpu)
+            ref_cpu = make_fused_step(params_cpu, opts, DT, static,
+                                      device="cpu")(None, forcing, state)
+            compare_step(f"{label} card vs CPU", ref_cpu, got_small)
+            cpu_ratio, cpu_leaf = compare_carbon(f"{label} card vs CPU",
+                                                 state, ref_cpu, got_small)
+            checks.append({"veg": opts.veg, "case": name, "max_err": err,
+                           "leaf": leaf, "share_of_bar": ratio,
+                           "carbon_share_of_bar": c_ratio,
+                           "carbon_leaf": c_leaf,
+                           "card_vs_cpu_carbon_share_of_bar": cpu_ratio,
+                           "card_vs_cpu_carbon_leaf": cpu_leaf})
+    # the path itself
+    column.reset_launches()
+    reset_launches()
+    runs = []
+    for opts in CARBON_OPTIONS:
+        eager = make_step(params, opts, DT, device=device)
+        for name in CARBON_CASES:
+            case = named_case(name, n)
+            static, forcing, state = to_device(case, device)
+            fused = make_fused_step(params, opts, DT, static, device=device)
+            for path, step in (("make_step", eager),
+                               ("make_fused_step", fused)):
+                s, flux = state, None
+                for _ in range(steps):
+                    s, flux = step(static, forcing, s)
+                label = f"veg={opts.veg} {name} {path}"
+                res = check_outputs(label, case[0], s, flux)
+                check_carbon_outputs(label, case[0], s)
+                f = tree_to_numpy(flux)
+                runs.append({"veg": opts.veg, "case": name, "path": path,
+                             "steps": steps, "max_abs_gpp": float(
+                                 np.abs(f["gpp"]).max()),
+                             "max_abs_nee": float(np.abs(f["nee"]).max()),
+                             **{f"max_abs_{k}": v for k, v in res.items()}})
+    total = steps * len(CARBON_OPTIONS) * len(CARBON_CASES)
+    launches = {"column": column_cuda.launches,
+                "thomas": dict(thomas_cuda.launches_by_rows)}
+    if device.type == "cuda":
+        want = {r: k * total for r, k in LAUNCHES_PER_STEP.items()}
+        if launches != {"column": total, "thomas": want}:
+            raise AssertionError(f"carbon path: launches {launches}, expected "
+                                 f"{total} fused steps and {want}")
+    emit("carbon", n=n, n_card_vs_cpu=n_cpu, carbon_bar=CARBON_BAR,
+         note="carbon_share_of_bar: worst of gpp, npp, nee and the six "
+              "pools' change over the step, |kernel - plain| over "
+              "(carbon_bar x the leaf's largest magnitude in the case, plus "
+              "one float32 spacing of the pool for a pool's change)",
+         checks=checks, runs=runs, launches=launches)
+    return launches
+
+
+def stacked_forcings(case, steps, device, corrupt_at=None):
+    """The case's forcing as ``steps`` steps stacked (T, n) on the
+    device; with ``corrupt_at`` that step's shortwave is a corrupt
+    record."""
+    seq = forcing_sequence(case[1], steps)
+    if corrupt_at is not None:
+        seq["soldn"][corrupt_at] = CORRUPT_SOLDN
+    return tree_from_numpy(Forcing, seq, device)
+
+
+def zero_acc(spec, n, device):
+    return tuple(torch.zeros(n, dtype=torch.float32, device=device)
+                 for _ in spec)
+
+
+def steps_by_hand(single, static, forcings, state, spec, n, device,
+                  stop_at_violation=False):
+    """What a chunk does, written out: single steps over the rows of the
+    stacked Forcing with the accumulators kept by hand.  Returns (state,
+    acc, fluxes, first violating step or None); with
+    ``stop_at_violation`` the loop ends after the first step that breaks
+    a budget (this reads the card back every step: it is the check, not
+    the path)."""
+    acc = zero_acc(spec, n, device)
+    fluxes, bad = [], None
+    for t in range(forcings[0].shape[0]):
+        forcing = Forcing(*[leaf[t] for leaf in forcings])
+        state, flux = single(static, forcing, state)
+        fluxes.append(flux)
+        for a, (field, op) in zip(acc, spec):
+            leaf = getattr(flux, field)
+            a.copy_(a + leaf if op == "sum" else torch.maximum(a, leaf.abs()))
+        violated = bool(((flux.errsw.abs() > STRICT_TOL)
+                         | (flux.erreng.abs() > STRICT_TOL)).any())
+        if violated and bad is None:
+            bad = t
+            if stop_at_violation:
+                break
+    return state, acc, fluxes, bad
+
+
+def assert_bit_equal(label, want, got):
+    for k, (a, b) in enumerate(zip(want, got)):
+        same = torch.equal(a, b) or bool(
+            ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        if not same:
+            raise AssertionError(f"{label}: tensor {k} differs from the "
+                                 "single steps done by hand")
+
+
+def phase_chunk(params, device, n, t_fused, t_eager, t_simulate):
+    """make_chunk_step over the fused step and over the eager step, and
+    simulate with collected fluxes: each the very bits of the same
+    number of single steps.  The entry points run first, launch counts
+    zeroed just before and read just after; the single steps they are
+    held against come afterwards."""
+    case = hetero_case("warm_day", n)
+    static, _forcing_one, state0 = to_device(case, device)
+    fused = make_fused_step(params, Options(), DT, static, device=device)
+    eager = make_step(params, Options(), DT, device=device)
+    f_fused = stacked_forcings(case, t_fused, device)
+    f_eager = Forcing(*[leaf[:t_eager].contiguous() for leaf in f_fused])
+    f_sim = Forcing(*[leaf[:t_simulate].contiguous() for leaf in f_fused])
+    chunk_fused = make_chunk_step(params, Options(), DT, CHUNK_ACC,
+                                  static=static, device=device)
+    chunk_eager = make_chunk_step(params, Options(), DT, CHUNK_ACC,
+                                  device=device)
+
+    column.reset_launches()
+    reset_launches()
+    got_fused = chunk_fused(None, f_fused, state0,
+                            zero_acc(CHUNK_ACC, n, device))
+    got_eager = chunk_eager(static, f_eager, state0,
+                            zero_acc(CHUNK_ACC, n, device))
+    got_sim = simulate(params, Options(), DT, static, f_sim, state0,
+                       collect_fluxes=True, fused=True, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"column": column_cuda.launches,
+                "thomas": dict(thomas_cuda.launches_by_rows)}
+    if device.type == "cuda":
+        want = {"column": t_fused + t_simulate,
+                "thomas": {r: k * t_eager
+                           for r, k in LAUNCHES_PER_STEP.items()}}
+        if launches != want:
+            raise AssertionError(f"chunk path: launches {launches}, "
+                                 f"expected {want}")
+
+    s, acc, _fl, _bad = steps_by_hand(fused, static, f_fused, state0,
+                                      CHUNK_ACC, n, device)
+    assert_bit_equal("chunk over the fused step", tuple(s) + acc,
+                     tuple(got_fused[0]) + got_fused[1])
+    res = check_outputs("chunk over the fused step", case[0], s, _fl[-1])
+    s, acc, _fl, _bad = steps_by_hand(eager, static, f_eager, state0,
+                                      CHUNK_ACC, n, device)
+    assert_bit_equal("chunk over the eager step", tuple(s) + acc,
+                     tuple(got_eager[0]) + got_eager[1])
+    s, _acc, fluxes, _bad = steps_by_hand(fused, static, f_sim, state0, (),
+                                          n, device)
+    stacked = Flux(*[torch.stack(leaves) for leaves in zip(*fluxes)])
+    assert_bit_equal("simulate over the fused step", tuple(s) + tuple(stacked),
+                     tuple(got_sim[0]) + tuple(got_sim[1]))
+    if tuple(got_sim[1].fsh.shape) != (t_simulate, n) or tuple(
+            got_sim[1].fsa.shape) != (t_simulate, n):
+        raise AssertionError("simulate: fluxes are not stacked (T, n)")
+    # the accumulated residuals stay under the reference's abort bound
+    land = torch.from_numpy(case[0]["ist"] == 1).to(device)
+    worst = {field: float(a[land].max()) for (field, _op), a in
+             zip(CHUNK_ACC[1:], got_fused[1][1:])}
+    for field, v in worst.items():
+        if not v < RESIDUAL_BOUND:
+            raise AssertionError(f"chunk: max|{field}| over {t_fused} steps "
+                                 f"= {v}, bound {RESIDUAL_BOUND}")
+    emit("chunk", n=n, case="hetero/warm_day", acc_spec=CHUNK_ACC,
+         fused_steps=t_fused, eager_steps=t_eager, simulate_steps=t_simulate,
+         bit_equal_to_single_steps=True, launches=launches,
+         max_abs_residual_over_chunk=worst,
+         mean_fsh=float(got_fused[1][0].mean()) / t_fused,
+         **{f"last_step_max_abs_{k}": v for k, v in res.items()})
+    return launches
+
+
+def phase_strict(params, device, n, steps, bad_at, t_eager):
+    """Strict budgets.  A clean sequence gives STRICT_SENTINEL and the
+    plain chunk's bits; a sequence whose step ``bad_at`` carries a
+    corrupt shortwave record (1e7 W/m2 breaks the energy budget by
+    rounding alone, far above the bound) gives bad_step = bad_at, the
+    state after that step and accumulators that stop there: the bits of
+    bad_at + 1 single steps.  Over the fused step at ``steps`` steps and
+    over the eager step at ``t_eager``."""
+    case = hetero_case("warm_day", n)
+    static, _f, state0 = to_device(case, device)
+    report = []
+    for path, t_len, k in (("fused", steps, bad_at), ("eager", t_eager, 1)):
+        build = dict(static=static) if path == "fused" else {}
+        single = (make_fused_step(params, Options(), DT, static,
+                                  device=device) if path == "fused"
+                  else make_step(params, Options(), DT, device=device))
+        strict = make_chunk_step(params, Options(), DT, CHUNK_ACC,
+                                 strict_budgets=True, device=device, **build)
+        plain = make_chunk_step(params, Options(), DT, CHUNK_ACC,
+                                device=device, **build)
+        clean = stacked_forcings(case, t_len, device)
+        corrupt = stacked_forcings(case, t_len, device, corrupt_at=k)
+
+        s, acc, bad = strict(static, clean, state0,
+                             zero_acc(CHUNK_ACC, n, device))
+        p_s, p_acc = plain(static, clean, state0,
+                           zero_acc(CHUNK_ACC, n, device))
+        if (bad.dtype != torch.int32 or bad.dim() != 0
+                or bad.device != s.tg.device):
+            raise AssertionError("bad_step is no 0-d int32 tensor on the "
+                                 "step's device")
+        if int(bad) != STRICT_SENTINEL:
+            raise AssertionError(f"strict, {path}: a clean sequence stopped "
+                                 f"at step {int(bad)}")
+        assert_bit_equal(f"strict, {path}, clean", tuple(p_s) + p_acc,
+                         tuple(s) + acc)
+
+        s, acc, bad = strict(static, corrupt, state0,
+                             zero_acc(CHUNK_ACC, n, device))
+        h_s, h_acc, _fl, h_bad = steps_by_hand(
+            single, static, corrupt, state0, CHUNK_ACC, n, device,
+            stop_at_violation=True)
+        if int(bad) != k or h_bad != k:
+            raise AssertionError(
+                f"strict, {path}: bad_step {int(bad)}, single steps by hand "
+                f"first break a budget at {h_bad}, the corrupt record is "
+                f"step {k}")
+        assert_bit_equal(f"strict, {path}, stopped at {k}",
+                         tuple(h_s) + h_acc, tuple(s) + acc)
+        for name, leaf in tree_to_numpy(s).items():
+            if not np.isfinite(leaf).all():
+                raise AssertionError(f"strict, {path}: State.{name} not "
+                                     "finite after the corrupt step")
+        report.append({"path": path, "steps": t_len, "corrupt_step": k,
+                       "bad_step": int(bad), "clean_bad_step": STRICT_SENTINEL,
+                       "max_abs_errsw_at_stop": float(acc[1].max()),
+                       "max_abs_erreng_at_stop": float(acc[2].max())})
+    emit("strict", n=n, case="hetero/warm_day", tolerance=STRICT_TOL,
+         corrupt_soldn=CORRUPT_SOLDN, sentinel=STRICT_SENTINEL, cases=report)
+
+
+def phase_chunk_no_sync(params, device, n, steps=4):
+    """A chunk in either mode over either step, and simulate, with
+    PyTorch's synchronisation check set to raise: nothing between the
+    first step and the last may make the host wait for the card."""
+    case = hetero_case("warm_day", n)
+    static, _f, state = to_device(case, device)
+    forcings = stacked_forcings(case, steps, device)
+    chunks = {}
+    for path, build in (("fused", dict(static=static)), ("eager", {})):
+        for strict in (False, True):
+            chunks[(path, strict)] = make_chunk_step(
+                params, Options(), DT, CHUNK_ACC, strict_budgets=strict,
+                device=device, **build)
+    accs = {key: zero_acc(CHUNK_ACC, n, device) for key in chunks}
+    # building a step reads the tables back (the by-value constants), so
+    # everything is built, and run once, before the check is armed
+    sim = make_simulate(params, Options(), DT, collect_fluxes=True,
+                        static=static, device=device)
+    for key, chunk in chunks.items():
+        chunk(static, forcings, state, accs[key])
+    sim(None, forcings, state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for key, chunk in chunks.items():
+            chunk(static, forcings, state, accs[key])
+        sim(None, forcings, state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit("chunk_no_sync", n=n, steps=steps,
+         paths=[f"make_chunk_step {p}{' strict' if s else ''}"
+                for p, s in chunks] + ["make_simulate fused"],
+         host_synchronisations=0)
+
+
+def phase_chunk_timing(params, device, n, steps, reps=5):
+    """ms a step of the fused step driven four ways, in turns in one
+    call: a synchronise after every step; free-running (``steps`` single
+    steps, one synchronise at the end); one chunk of ``steps`` (with the
+    accumulators of CHUNK_ACC, and with none); one strict chunk.  For
+    each also the host's share: the time until the last step is
+    enqueued."""
+    case = uniform_case(n)
+    static, forcing, state = to_device(case, device)
+    forcings = stacked_forcings(case, steps, device)
+    fused = make_fused_step(params, Options(), DT, static, device=device)
+    chunk = make_chunk_step(params, Options(), DT, CHUNK_ACC, static=static,
+                            device=device)
+    bare = make_chunk_step(params, Options(), DT, (), static=static,
+                           device=device)
+    strict = make_chunk_step(params, Options(), DT, CHUNK_ACC, static=static,
+                             strict_budgets=True, device=device)
+    acc = zero_acc(CHUNK_ACC, n, device)
+
+    def synchronised():
+        s = state
+        for _ in range(steps):
+            s, _ = fused(None, forcing, s)
+            torch.cuda.synchronize()
+
+    def free_running():
+        s = state
+        for _ in range(steps):
+            s, _ = fused(None, forcing, s)
+
+    ways = {"synchronised_every_step": synchronised,
+            "free_running": free_running,
+            "chunk": lambda: chunk(None, forcings, state, acc),
+            "chunk_no_accumulators": lambda: bare(None, forcings, state, ()),
+            "strict_chunk": lambda: strict(None, forcings, state, acc)}
+    enqueue = {k: [] for k in ways}
+    total = {k: [] for k in ways}
+    for i in range(reps + 1):
+        for key, fn in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i:                       # the first round warms up
+                enqueue[key].append((t1 - t0) / steps * 1e3)
+                total[key].append((t2 - t0) / steps * 1e3)
+    out = {key: {"ms_per_step": statistics.median(total[key]),
+                 "ms_min": min(total[key]), "ms_max": max(total[key]),
+                 "host_enqueue_ms_per_step": statistics.median(enqueue[key])}
+           for key in ways}
+    emit("chunk_timing", case="uniform", n=n, steps=steps, reps=reps,
+         in_turns=True, acc_spec=CHUNK_ACC, **out,
+         strict_ms_per_step=out["strict_chunk"]["ms_per_step"],
+         note="host clock; every way advances the same fused step; "
+              "host_enqueue_ms_per_step is the time until the call that "
+              "enqueues the last step returns (for synchronised_every_step "
+              "it holds the waits)")
+    return out
+
+
 def wall_ms_in_turns(steps, states, reps, warmup):
     """Host-clock milliseconds of one step of each of ``steps`` (a list
     of callables state -> state), taken in turns so that both see the
@@ -701,16 +1113,15 @@ def wall_ms_in_turns(steps, states, reps, warmup):
     return times
 
 
-def column_sets(params, case, device, copies):
+def column_sets(params, case, device, copies, opts=Options()):
     """``copies`` independent copies of one case's inputs, each with its
     own plan, as arguments of column_cuda: walked in turn they are cold
     in the L2 cache (two copies at 65,536 points exceed it)."""
     sets = []
     for _ in range(copies):
         static, forcing, state = to_device(case, device)
-        fused = make_fused_step(params, Options(), DT, static, device=device)
-        sets.append((column.ColumnPlan(fused.gathered, Options(), DT, static),
-                     forcing, state))
+        fused = make_fused_step(params, opts, DT, static, device=device)
+        sets.append((fused.plan, forcing, state))
     return sets
 
 
@@ -922,6 +1333,22 @@ def count_operations(gathered, opts, dt, static, forcing, state):
         shutil.rmtree(build_dir, ignore_errors=True)
 
 
+def carbon_operations(params_cpu):
+    """Operations a point with the carbon branch on (opt_veg = 2), whole
+    step and the water stage that holds it, counted as column_bound
+    counts the default's."""
+    opts = CARBON_OPTIONS[0]
+    s_cpu, f_cpu, st_cpu = to_device(uniform_case(N_OPS), "cpu")
+    g_cpu = make_fused_step(params_cpu, opts, DT, s_cpu,
+                            device="cpu").gathered
+    ops = count_operations(g_cpu, opts, DT, s_cpu, f_cpu, st_cpu)
+    return {"operations_per_point": ops["total"] / N_OPS,
+            "water_stage_operations_per_point":
+                ops["by_stage"]["water"]["total"] / N_OPS,
+            "carbon_header_operations_per_point":
+                ops["by_file"].get("carbon.cuh", 0) / N_OPS}
+
+
 def column_bound(params_cpu, gathered, static, forcing, state, n, weights,
                  clock_mhz):
     """The least time the card could take for one step: bytes (every
@@ -1017,6 +1444,16 @@ def phase_timing(params, params_cpu, step, device, n, weights, clock_mhz,
     ms_large = time_cuda(
         column_cuda, column_sets(params, uniform_case(N_LARGE), device, 2),
         device=device)
+    # the same kernels with the carbon branch on, in the same call: the
+    # whole step, and the water stage (which holds the branch) alone
+    veg2 = CARBON_OPTIONS[0]
+    sets = column_sets(params, uniform_case(n), device, 3, veg2)
+    ms_veg2 = time_cuda(column_cuda, sets, device=device)
+    last = column_cuda(*sets[0])
+    water_ms_veg2 = time_cuda(column.launch_stage, [(sets[0][0], "water")],
+                              device=device)
+    del last, sets
+    carbon_ops = carbon_operations(params_cpu)
     plain_device_ms, plain_kernels = eager_device_ms(step, static, forcing,
                                                      state)
     bound = column_bound(params_cpu, fused.gathered, static, forcing, state,
@@ -1037,6 +1474,9 @@ def phase_timing(params, params_cpu, step, device, n, weights, clock_mhz,
                 "stage_ms": stage_ms,
                 "kernel_ms_hetero_cold_snow": ms_cold_snow,
                 f"kernel_ms_n{N_LARGE}": ms_large,
+                "kernel_ms_opt_veg_2": ms_veg2,
+                "water_stage_ms_opt_veg_2": water_ms_veg2,
+                "opt_veg_2": carbon_ops,
                 "kernel_launches_per_step": column.device_launches(n),
                 "host_share_ms": f_ms - kernel_ms,
                 "host_enqueue_ms": host_enqueue_ms,
@@ -1048,7 +1488,9 @@ def phase_timing(params, params_cpu, step, device, n, weights, clock_mhz,
               "back to back with itself, on the scratch of a whole step")
     return {"ms": kernel_ms, "ms_isolated": kernel_ms_isolated,
             "stage_ms": stage_ms, "ms_hetero_cold_snow": ms_cold_snow,
-            "ms_large": ms_large, "host_enqueue_ms": host_enqueue_ms,
+            "ms_large": ms_large, "ms_veg2": ms_veg2,
+            "water_ms_veg2": water_ms_veg2, "carbon_ops": carbon_ops,
+            "host_enqueue_ms": host_enqueue_ms,
             "free_running_ms": free_running_ms,
             "plain_ms": plain_device_ms, "plain_wall_ms": e_ms,
             "wall_ms": f_ms, **bound}
@@ -1096,6 +1538,10 @@ def cpu_rehearsal():
     phase_fused_kernel(params, device, 16)
     phase_fused_step(params, device, 64, 2)
     phase_fused_options(params, device, 8)
+    phase_carbon(params, params, device, 16, 2, n_cpu=8)
+    phase_chunk(params, device, 16, 6, 2, 3)
+    phase_strict(params, device, 16, 6, 3, 3)
+    emit("rehearsal_carbon_operations", **carbon_operations(params))
     static, forcing, state = to_device(uniform_case(N_OPS), device)
     fused = make_fused_step(params, Options(), DT, static, device="cpu")
     emit("rehearsal_bound", **column_bound(params, fused.gathered, static,
@@ -1137,21 +1583,37 @@ def main():
     phase_fused_cpu_agreement(params, params_cpu, device)
     phase_fused_options(params, device, N_OPTIONS)
     phase_no_sync(step, params, device, N_POINTS)
+
+    # the further paths: carbon through both steps, the multi-step
+    # entry points over both steps
+    carbon_launches = phase_carbon(params, params_cpu, device, N_POINTS,
+                                   N_STEPS)
+    chunk_launches = phase_chunk(params, device, N_POINTS, T_CHUNK,
+                                 T_CHUNK_EAGER, T_SIMULATE)
+    phase_strict(params, device, N_POINTS, T_STRICT, BAD_AT, T_CHUNK_EAGER)
+    phase_chunk_no_sync(params, device, N_POINTS)
+
     weights, clock_mhz = phase_issue_weights(device)
     timing = phase_timing(params, params_cpu, step, device, N_POINTS,
                           weights, clock_mhz)
+    chunk_timing = phase_chunk_timing(params, device, N_POINTS, T_CHUNK)
     if args.profile:
         phase_profile(step, device, N_POINTS, args.profile)
     if args.sweep:
         phase_sweep(params, step, device)
 
     for entry in entries:
-        entry["launches"] = launches[entry["shape"][1]]
+        rows = entry["shape"][1]
+        entry["launches"] = launches[rows]
+        entry["launches_carbon_path"] = carbon_launches["thomas"][rows]
+        entry["launches_chunk_path"] = chunk_launches["thomas"][rows]
     entries.append({
         "name": "column_cuda", "route": "cuda",
         "source": "noahmp_tpu_torch/csrc/column.cu",
         "replaces": "noahmp_tpu/pallas/column.py:127",
         "shape": [N_POINTS], "launches": column_launches,
+        "launches_carbon_path": carbon_launches["column"],
+        "launches_chunk_path": chunk_launches["column"],
         "launches_per_step": column.device_launches(N_POINTS),
         "max_abs_err": worst[0],
         "max_abs_err_at": f"{worst[1]}: {worst[2]}",
@@ -1159,8 +1621,15 @@ def main():
         "ms": timing["ms"], "ms_isolated": timing["ms_isolated"],
         "ms_1m": timing["ms_large"],
         "ms_hetero_cold_snow": timing["ms_hetero_cold_snow"],
+        "ms_opt_veg_2": timing["ms_veg2"],
+        "water_stage_ms_opt_veg_2": timing["water_ms_veg2"],
+        "opt_veg_2": timing["carbon_ops"],
         "stages": [{**attr, "ms": timing["stage_ms"][attr["stage"]]}
                    for attr in attrs],
+        "chunk_ms_per_step": chunk_timing["chunk"]["ms_per_step"],
+        "chunk_host_enqueue_ms_per_step":
+            chunk_timing["chunk"]["host_enqueue_ms_per_step"],
+        "strict_ms_per_step": chunk_timing["strict_chunk"]["ms_per_step"],
         "step_wall_ms": timing["wall_ms"],
         "host_share_ms": timing["wall_ms"] - timing["ms"],
         "host_enqueue_ms": timing["host_enqueue_ms"],
@@ -1185,6 +1654,11 @@ def main():
                   "median of 5, three input sets walked in turn (cold in "
                   "L2), uniform case; ms_1m: the same at n = 1,048,576, two "
                   "sets; ms_hetero_cold_snow: the same on hetero/cold_snow; "
+                  "ms_opt_veg_2 and water_stage_ms_opt_veg_2: the step and "
+                  "its water stage with the carbon branch on, same call; "
+                  "chunk_ms_per_step and strict_ms_per_step: host clock over "
+                  f"one chunk of {T_CHUNK} steps, median of 5, in turns with "
+                  "the free-running steps (phase chunk_timing); "
                   "stages[].ms: one launch alone, back to back with itself; "
                   "plain_ms: summed device time of the eager step's kernels "
                   "(torch.profiler); plain_wall_ms and step_wall_ms: host "
@@ -1198,9 +1672,12 @@ def main():
                   "column_plain",
     })
     for entry in entries:
-        if entry["launches"] <= 0:
-            raise AssertionError(f"{entry['name']} was not launched by "
-                                 "the main path")
+        for key in ("launches", "launches_carbon_path",
+                    "launches_chunk_path"):
+            if entry[key] <= 0:
+                raise AssertionError(f"{entry['name']}: {key} = "
+                                     f"{entry[key]}, a path did not launch "
+                                     "the kernel")
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

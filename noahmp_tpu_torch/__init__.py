@@ -14,6 +14,13 @@ Quick start::
     fused = make_fused_step(params, Options(), 900.0, static)
     state, flux = fused(None, forcing, state)
 
+    # 48 steps in one call over the fused step, forcings stacked (48, n),
+    # the sensible heat flux summed on the card
+    chunk = make_chunk_step(params, Options(), 900.0, (("fsh", "sum"),),
+                            static=static)
+    acc = (torch.zeros(n, device="cuda"),)
+    state, (fsh_sum,) = chunk(None, forcings, state, acc)
+
 Every entry point takes ``device=None`` (the card; raises without CUDA)
 or an explicit device such as ``"cpu"``.  The package imports ``torch``
 and ``numpy`` only, never ``jax`` or ``noahmp_tpu``.
@@ -23,7 +30,8 @@ from .constants import NBAND, NSOIL, MSNOW, NLEVELS
 from .options import Options, DEFAULT_OPTIONS
 from .params import load_params, Params
 from .state import State, Static, Forcing, Flux, init_state, init_static
-from .driver.step import make_step, make_fused_step
+from .driver.step import (make_step, make_fused_step, make_chunk_step,
+                          make_simulate, simulate, STRICT_SENTINEL)
 
 __version__ = "0.1.0"
 
@@ -31,5 +39,6 @@ __all__ = [
     "NBAND", "NSOIL", "MSNOW", "NLEVELS",
     "Options", "DEFAULT_OPTIONS", "load_params", "Params",
     "State", "Static", "Forcing", "Flux", "init_state", "init_static",
-    "make_step", "make_fused_step", "__version__",
+    "make_step", "make_fused_step", "make_chunk_step", "make_simulate",
+    "simulate", "STRICT_SENTINEL", "__version__",
 ]

@@ -82,6 +82,21 @@ def hetero_case(regime, n=8):
     return static, forcing, state
 
 
+def forcing_sequence(forcing, steps):
+    """A Forcing dict of (n,) numpy leaves as ``steps`` steps stacked
+    ``(steps, n)``, for the multi-step entry points: air temperature,
+    shortwave and wind swing a little from step to step (a slow wave
+    with a period of 24 steps), so that no two steps of a chunk are
+    alike; everything else repeats."""
+    wave = np.sin(2.0 * np.pi * np.arange(steps, dtype=np.float32) / 24.0)
+    out = {k: np.repeat(v[None], steps, axis=0) for k, v in forcing.items()}
+    out["sfctmp"] = (out["sfctmp"] + 1.5 * wave[:, None]).astype(np.float32)
+    out["soldn"] = (out["soldn"] * (1.0 - 0.2 * wave[:, None] ** 2)).astype(
+        np.float32)
+    out["uu"] = (out["uu"] + 0.5 * wave[:, None]).astype(np.float32)
+    return out
+
+
 def to_device(case, device=None):
     """The (static, forcing, state) dicts as the port's containers on
     ``device`` (``None``: the card)."""
@@ -143,3 +158,52 @@ def bar_ratio(ref, got, bar, ceiling):
     ratio = np.where((ref == got) | (np.isnan(ref) & np.isnan(got)),
                      0.0, ratio)
     return float("inf") if np.isnan(ratio).any() else float(ratio.max())
+
+
+# The carbon fluxes are of order 1e-6 g m-2 s-1 and the pools change by
+# some 1e-3 g m-2 a step beside values of hundreds, so the step's bars
+# above (which scale with max(1, |ref|)) are blind to them.  They are
+# held relative to the leaf's largest magnitude in the case instead.  A
+# pool's change over the step is the difference of two rounded pool
+# values, so it is allowed one spacing of float32 at the pool's largest
+# magnitude on top (3e-5 at 500 g m-2).
+CARBON_FLUXES = ("gpp", "npp", "nee")
+CARBON_POOLS = ("lfmass", "rtmass", "stmass", "wood", "stblcp", "fastcp")
+CARBON_BAR = 1.0e-4
+
+
+def carbon_ratio(ref, got, floor=0.0):
+    """Worst |ref - got| over (CARBON_BAR x the largest finite |ref| of
+    the leaf + floor); <= 1 passes.  Equal infinities and NaN in both
+    count as equal, NaN in one or a shape mismatch as infinite."""
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    if ref.shape != got.shape:
+        return float("inf")
+    finite = np.isfinite(ref)
+    if not finite.any():
+        return 0.0 if np.array_equal(ref, got, equal_nan=True) else float(
+            "inf")
+    allowed = CARBON_BAR * np.abs(ref[finite]).max() + floor
+    if allowed == 0.0:
+        return 0.0 if np.array_equal(ref, got, equal_nan=True) else float(
+            "inf")
+    with np.errstate(invalid="ignore"):
+        ratio = np.abs(ref - got) / allowed
+    ratio = np.where((ref == got) | (np.isnan(ref) & np.isnan(got)),
+                     0.0, ratio)
+    return float("inf") if np.isnan(ratio).any() else float(ratio.max())
+
+
+def carbon_ratios(old_state, ref, got):
+    """{leaf: carbon_ratio} over gpp, npp, nee and the six pools' change
+    over the step; ``ref`` and ``got`` are (state, flux) dicts of numpy
+    leaves, ``old_state`` the state both started from."""
+    out = {name: carbon_ratio(ref[1][name], got[1][name])
+           for name in CARBON_FLUXES}
+    for name in CARBON_POOLS:
+        old = old_state[name]
+        top = max(float(np.abs(ref[0][name]).max()), float(np.abs(old).max()))
+        out[name] = carbon_ratio(ref[0][name] - old, got[0][name] - old,
+                                 floor=float(np.spacing(np.float32(top))))
+    return out

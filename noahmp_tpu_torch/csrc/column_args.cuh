@@ -253,9 +253,10 @@
   X(tbot) X(stc)
 
 // Table scalars, uniform over the grid: the special land-use classes
-// (int) and the general parameters (float; the three band pairs are
-// spelled out as _vis/_nir).
-#define NM_CLASS_SCALARS(X) X(isurban) X(iswater) X(isbarren) X(isice)
+// (int; isegblf is read by the carbon branch alone) and the general
+// parameters (float; the three band pairs are spelled out as _vis/_nir).
+#define NM_CLASS_SCALARS(X) \
+  X(isurban) X(iswater) X(isbarren) X(isice) X(isegblf)
 
 #define NM_GEN_SCALARS(X)                                              \
   X(csoil) X(zbot) X(czil) X(timean) X(fsatmax) X(mltfct) X(z0sno)     \

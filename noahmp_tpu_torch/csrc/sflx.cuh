@@ -8,7 +8,10 @@
 //   kVegeTile  the vegetated tile's Newton iterations   } independent:
 //   kBareTile  the bare tile's Newton iteration         } separate warps
 //   kGround    tile aggregation, snow/soil temperatures, phase change
-//   kWater     canopy, snow and soil water; the water residual
+//   kWater     canopy, snow and soil water; the water residual; with
+//              opt_veg 2 or 5 the carbon pools, which need the water
+//              stage's soil moisture and temperature and nothing that
+//              a later launch could supply
 //
 // A stage reads its inputs from the step's arrays where it uses them,
 // stores each output leaf where it is final, and passes the rest to the
@@ -16,6 +19,7 @@
 #pragma once
 
 #include "atm.cuh"
+#include "carbon.cuh"
 #include "column_io.cuh"
 #include "common.cuh"
 #include "energy.cuh"
@@ -154,15 +158,37 @@ NM_INL void stage_water(const Point& q) {
   ns.wa(wt.wa);
   ns.wt(wt.wt);
   ns.wslake(wt.wslake);
-  // the carbon pools pass through: opt_veg 2 and 5 are not built
-  ns.lfmass(q.st.lfmass());
-  ns.rtmass(q.st.rtmass());
-  ns.stmass(q.st.stmass());
-  ns.wood(q.st.wood());
-  ns.stblcp(q.st.stblcp());
-  ns.fastcp(q.st.fastcp());
 
   const FluxOut& fx = q.fx;
+  if (a.opt.veg == 2 || a.opt.veg == 5) {
+    // the prologue stored phenology's LAI and zeros for the carbon
+    // fluxes; carbon's values replace them
+    CarbonOut cb;
+    carbon(q.p, a.cls, lutyp, dt, zsoil, wt.dzsnso, wt.stc, wt.smc, wt.tv,
+           fx.get_psn(), q.fo.foln(), sm.btran(), sm.igs(), ns.get_lai(),
+           q.st.lfmass(), q.st.rtmass(), q.st.stmass(), q.st.wood(),
+           q.st.stblcp(), q.st.fastcp(), cb);
+    ns.lai(cb.lai);
+    ns.sai(cb.sai);
+    ns.lfmass(cb.lfmass);
+    ns.rtmass(cb.rtmass);
+    ns.stmass(cb.stmass);
+    ns.wood(cb.wood);
+    ns.stblcp(cb.stblcp);
+    ns.fastcp(cb.fastcp);
+    fx.nee(cb.nee);
+    fx.gpp(cb.gpp);
+    fx.npp(cb.npp);
+  } else {
+    // without carbon the pools pass through
+    ns.lfmass(q.st.lfmass());
+    ns.rtmass(q.st.rtmass());
+    ns.stmass(q.st.stmass());
+    ns.wood(q.st.wood());
+    ns.stblcp(q.st.stblcp());
+    ns.fastcp(q.st.fastcp());
+  }
+
   fx.ecan(wt.ecan);
   fx.etran(wt.etran);
   fx.runsrf(wt.runsrf);

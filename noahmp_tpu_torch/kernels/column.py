@@ -32,14 +32,18 @@ different warps.  Inputs are read where they are used and outputs stored where
 they are final, straight from and to the batch-major arrays (no
 transposes, no padding, the grid masks ``i < n``); the two implicit
 solves go through ``thomas_solve<7>`` and ``thomas_solve<4>`` of
-``csrc/tridiag.cuh``.
+``csrc/tridiag.cuh``.  With ``opt_veg`` 2 or 5 the carbon pools
+(``csrc/carbon.cuh``) run at the end of the water stage, which holds
+their inputs in registers: a step stays four launches.
 
 The wrapper makes one ``ctypes`` call a step.  ``ColumnPlan`` prepares
 everything that does not change from step to step, and recognises the
 State (and Forcing) it has already checked: the State a step is given is
 nearly always the very object the last step returned, whose leaves the
 plan itself laid out.  Anything else is checked leaf by leaf and raises
-on a wrong device, dtype, shape or stride.
+on a wrong device, dtype, shape or stride.  A sequence of steps hands
+over one Forcing stacked ``(T, n)``, checked once; step ``t`` reads row
+``t`` of it (``column_cuda(plan, forcings, state, t)``).
 
 The argument order has one source of truth on each side: ``State``,
 ``Flux``, ``Forcing`` and ``Static`` ``._fields`` with
@@ -290,7 +294,12 @@ class ColumnPlan:
     knows them: the very container object it checked, or made, last
     time, whose leaves still point where they did.  A NamedTuple cannot
     be given another leaf, so a container with a replaced leaf is
-    another object and is checked in full."""
+    another object and is checked in full.
+
+    A chunk of steps hands over one Forcing whose leaves are stacked
+    ``(T, n)``: the plan checks it once, keeps its base addresses, and
+    points step ``t`` at row ``t`` of every leaf by adding an offset, so
+    that a step inside a chunk checks no Forcing leaf at all."""
 
     def __init__(self, gathered: Gathered, opts: Options, dt, static,
                  need_cuda=True):
@@ -338,6 +347,7 @@ class ColumnPlan:
         self._out = self._window(args_type.out, 0,
                                  num_state + len(head["FLUX"]))
         self._known = {"FORCING": (None, None), "STATE": (None, None)}
+        self._stacked = (None, None, None)  # Forcing, pointers, base array
         # the two output allocations, State then Flux: for each its
         # leaves' sizes in words, their byte offsets, and the leaves
         # that are no (n,) float32 block
@@ -368,11 +378,40 @@ class ColumnPlan:
             self._known[key] = (tree, pointers)
         self._in[key][:] = pointers
 
-    def point_to(self, forcing, state):
+    def _point_in_stacked(self, forcings, t):
+        known, pointers, base = self._stacked
+        if (forcings is not known
+                or tuple(map(_DATA_PTR, forcings)) != pointers):
+            steps = forcings[0].shape[0] if forcings[0].dim() == 2 else -1
+            for name, dtype, _width in header_layout()["FORCING"]:
+                leaf = getattr(forcings, name)
+                if leaf.dim() != 2 or leaf.shape[0] != steps:
+                    raise ValueError(
+                        f"column_cuda: forcing.{name} has shape "
+                        f"{tuple(leaf.shape)}, a stacked Forcing needs "
+                        f"(T, {self.n}) with one T for every leaf")
+                _check_leaf("forcing", name, leaf[0], dtype, 1, self.n,
+                            self.device, self.need_cuda)
+                if not leaf.is_contiguous():
+                    raise ValueError(f"column_cuda: forcing.{name} is not "
+                                     "contiguous")
+            pointers = tuple(map(_DATA_PTR, forcings))
+            base = np.array(pointers, dtype=np.int64)
+            self._stacked = (forcings, pointers, base)
+        if not 0 <= t < forcings[0].shape[0]:
+            raise IndexError(f"column_cuda: step {t} of a stacked Forcing "
+                             f"of {forcings[0].shape[0]} steps")
+        np.add(base, 4 * self.n * t, out=self._in["FORCING"])
+
+    def point_to(self, forcing, state, t=None):
         """Write this step's Forcing and State pointers into the argument
         struct, after checking every leaf of a container the plan does
-        not know."""
-        self._point_in("FORCING", forcing)
+        not know.  With ``t`` given, ``forcing`` is stacked ``(T, n)`` and
+        the step reads row ``t``."""
+        if t is None:
+            self._point_in("FORCING", forcing)
+        else:
+            self._point_in_stacked(forcing, t)
         self._point_in("STATE", state)
         return self.args
 
@@ -404,14 +443,16 @@ class ColumnPlan:
         return new_state, flux
 
 
-def column_cuda(plan: ColumnPlan, forcing, state):
+def column_cuda(plan: ColumnPlan, forcing, state, t=None):
     """One model step of every point on the card with the hand-written
     kernels.  Takes contiguous CUDA tensors of the containers' dtypes and
     shapes and raises on anything else; enqueues the step's launches on
-    the current stream with one C call, does not synchronise.  Returns
-    (State, Flux).  ``column_cuda.launches`` counts steps;
-    ``device_launches(n)`` says how many kernel launches a step is."""
-    args = plan.point_to(forcing, state)
+    the current stream with one C call, does not synchronise.  With ``t``
+    given, ``forcing`` holds a sequence, every leaf stacked ``(T, n)``,
+    and the step reads row ``t`` of it.  Returns (State, Flux).
+    ``column_cuda.launches`` counts steps; ``device_launches(n)`` says
+    how many kernel launches a step is."""
+    args = plan.point_to(forcing, state, t)
     new_state, flux = plan.outputs()
     if plan.n == 0:
         return new_state, flux

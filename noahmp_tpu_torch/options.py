@@ -6,8 +6,11 @@ core/module_noahmp_global.f90:15-74).  Here they are a frozen NamedTuple
 read when a step is built: each ``opt_*`` is a Python ``if``, so the step
 runs only the selected branch and never dispatches on the hot path.
 
-``UNPORTED`` lists the option values whose branch the port does not hold
-yet; ``check_ported`` raises for them when a step is built.
+``UNPORTED`` lists the option values whose branch the port does not
+hold.  It is empty: every value of ``OPTION_VALUES`` builds.  The table
+and ``check_ported`` stay, so that a value added to an option can be
+refused until its branch exists; ``check_ported`` also raises for a
+value that is none of its option's, when a step is built.
 ``FUSED_UNPORTED`` lists the values that the fused column kernel refuses
 on top of those; ``check_fused_ported`` raises for them when a fused
 step is built.
@@ -52,12 +55,10 @@ class Options(NamedTuple):
 DEFAULT_OPTIONS = Options()
 
 
-# Option values whose physics the port does not hold yet.  A step built
-# with one of them raises; it never runs another branch in its place.
-UNPORTED = {
-    "veg": {2: "dynamic vegetation (physics/carbon.py)",
-            5: "carbon on prescribed vegetation (physics/carbon.py)"},
-}
+# Option values whose physics the port does not hold, as
+# {option: {value: what is missing}}.  A step built with one of them
+# raises; it never runs another branch in its place.
+UNPORTED = {}
 
 
 # Option values that the eager step runs but the fused column kernel
@@ -81,9 +82,19 @@ def _missing(opts: Options, table: dict) -> list:
             if getattr(opts, name) in values]
 
 
+def _check_known(opts: Options) -> None:
+    unknown = [f"opt_{name}={getattr(opts, name)}"
+               for name, values in OPTION_VALUES.items()
+               if getattr(opts, name) not in values]
+    if unknown:
+        raise ValueError("unknown option values: " + "; ".join(unknown))
+
+
 def check_ported(opts: Options) -> None:
-    """Raise NotImplementedError naming every option value of ``opts``
-    that the port does not implement yet."""
+    """Raise ValueError for a value that is none of its option's, and
+    NotImplementedError naming every option value of ``opts`` that the
+    port does not implement."""
+    _check_known(opts)
     missing = _missing(opts, UNPORTED)
     if missing:
         raise NotImplementedError(
@@ -94,11 +105,7 @@ def check_fused_ported(opts: Options) -> None:
     """Raise NotImplementedError naming every option value of ``opts``
     that the fused column kernel refuses, or that is no value of its
     option at all (the kernel branches on the numbers it is given)."""
-    unknown = [f"opt_{name}={getattr(opts, name)}"
-               for name, values in OPTION_VALUES.items()
-               if getattr(opts, name) not in values]
-    if unknown:
-        raise ValueError("unknown option values: " + "; ".join(unknown))
+    _check_known(opts)
     missing = _missing(opts, FUSED_UNPORTED)
     if missing:
         raise NotImplementedError(

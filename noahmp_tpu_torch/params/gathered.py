@@ -31,7 +31,7 @@ GEN_BY_SLP = ("slope",)
 GATHERED_FIELDS = VEG_BY_LUTYP + SOIL_BY_SLTYP + SOIL_BY_ISC + GEN_BY_SLP
 
 # table scalars, uniform over the grid, that the kernel takes by value
-CLASS_SCALARS = ("isurban", "iswater", "isbarren", "isice")
+CLASS_SCALARS = ("isurban", "iswater", "isbarren", "isice", "isegblf")
 GEN_SCALARS = ("csoil", "zbot", "czil", "timean", "fsatmax", "mltfct",
                "z0sno", "ssi", "swemax", "alblake_vis", "alblake_nir",
                "omegas_vis", "omegas_nir", "betads", "betais", "emssoil",

@@ -12,11 +12,13 @@ import torch
 from ..constants import MSNOW, MPE
 from ..numerics.ops import (where, maximum, minimum, col, sum_last,
                             shift_down, layer_index)
+from ..numerics.select import vsel
 from ..state import State, Static, Forcing, Flux
 from . import atm as atm_mod
 from . import phenology as phen_mod
 from . import energy as energy_mod
 from . import water as water_mod
+from . import carbon as carbon_mod
 
 
 def step_columns(params, opts, static: Static, forcing: Forcing,
@@ -78,13 +80,31 @@ def step_columns(params, opts, static: Static, forcing: Forcing,
         en.snowh, en.sneqv, en.snice, en.snliq, en.stc, en.swc, en.smc,
         st.zwt, st.wa, st.wt, st.wslake)
 
-    # carbon (func:439-447) runs only with opt_veg 2 or 5, which the
-    # make_step refuses until physics/carbon.py is ported
-    lai_new, sai_new = ph.lai, ph.sai
-    lfmass, rtmass, stmass = st.lfmass, st.rtmass, st.stmass
-    wood, stblcp, fastcp = st.wood, st.stblcp, st.fastcp
-    z = torch.zeros_like(en.tg)
-    gpp, npp, nee = z, z, z
+    # carbon (func:439-447)
+    if opts.veg in (2, 5):
+        # root-zone temperature (func:330-335): an argument of the
+        # reference's carbon call that nothing downstream reads
+        nroot = veg_p.nroot[lutyp]
+        zroot = -vsel(zsoil, maximum(nroot - 1, 0))
+        troot = sum_last(where(
+            layer_index(dz_soil) < col(nroot),
+            st.stc[..., MSNOW:] * dz_soil / col(zroot), 0.0))
+        cb = carbon_mod.carbon(
+            veg_p, lutyp, params.soil.smcmax[sltyp], dt, zsoil,
+            wt.dzsnso[..., MSNOW:], wt.stc, wt.smc, wt.tv, en.tg, en.psn,
+            forcing.foln, en.btran, en.apar, fveg, ph.igs, troot,
+            static.ist, ph.lai, ph.sai, st.lfmass, st.rtmass,
+            st.stmass, st.wood, st.stblcp, st.fastcp)
+        lai_new, sai_new = cb.lai, cb.sai
+        lfmass, rtmass, stmass = cb.lfmass, cb.rtmass, cb.stmass
+        wood, stblcp, fastcp = cb.wood, cb.stblcp, cb.fastcp
+        gpp, npp, nee = cb.gpp, cb.npp, cb.nee
+    else:
+        lai_new, sai_new = ph.lai, ph.sai
+        lfmass, rtmass, stmass = st.lfmass, st.rtmass, st.stmass
+        wood, stblcp, fastcp = st.wood, st.stblcp, st.fastcp
+        z = torch.zeros_like(en.tg)
+        gpp, npp, nee = z, z, z
 
     # conservation diagnostics (func:633-732); returned, not asserted
     errsw = a.swdown - (en.fsa + en.fsr)

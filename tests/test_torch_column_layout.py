@@ -12,7 +12,7 @@ import torch
 from noahmp_tpu_torch import Flux, Forcing, Options, State, Static
 from noahmp_tpu_torch.kernels import column
 from noahmp_tpu_torch.kernels._build import CSRC_DIR, EXTRA_FLAGS
-from noahmp_tpu_torch.params.gathered import GATHERED_FIELDS
+from noahmp_tpu_torch.params.gathered import CLASS_SCALARS, GATHERED_FIELDS
 
 HEAD = column.header_layout()
 
@@ -40,11 +40,15 @@ def test_header_counts():
     assert len(HEAD["STATE"]) == 36 and len(HEAD["FLUX"]) == 61
     assert len(HEAD["STATIC"]) == 12 and len(HEAD["FORCING"]) == 15
     assert HEAD["OPTION"] == Options._fields
+    # the special classes by value; the carbon branch reads the last
+    assert HEAD["CLASS"] == CLASS_SCALARS == (
+        "isurban", "iswater", "isbarren", "isice", "isegblf")
     column.check_layout()
     args = column._args_type()
     n_in = sum(len(HEAD[k]) for k in ("STATIC", "FORCING", "STATE", "PARAM"))
     assert len(args().in_) == n_in
     assert len(args().out) == 36 + 61
+    assert len(args().cls) == 5
     # passed by value as the kernel's one parameter: under 4 KB
     assert ctypes.sizeof(args) < 4096
 
@@ -104,7 +108,8 @@ def test_every_include_exists(fname):
 
 def test_one_header_per_physics_module():
     for mod in ("atm", "phenology", "thermo", "radiation", "sfc", "flux",
-                "soiltemp", "energy", "snow", "soilwater", "water", "sflx"):
+                "soiltemp", "energy", "snow", "soilwater", "water", "carbon",
+                "sflx"):
         assert os.path.exists(os.path.join(CSRC_DIR, mod + ".cuh")), mod
     assert "--fmad=false" in EXTRA_FLAGS["column"]
 

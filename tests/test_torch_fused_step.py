@@ -291,11 +291,17 @@ def test_column_plain_is_step_columns_on_gathered_parameters():
 
 
 @pytest.mark.parametrize("name, value", [("veg", 2), ("veg", 5)])
-def test_unported_option_raises_at_build(name, value):
+def test_unported_option_raises_at_build(monkeypatch, name, value):
+    """Both carbon values build the fused step now; listed in the
+    refusal table again, they raise when it is built."""
     static = init_static(2, device="cpu")
+    opts = Options()._replace(**{name: value})
+    assert topt.UNPORTED == {} and topt.FUSED_UNPORTED == {}
+    make_fused_step(load_params(device="cpu"), opts, DT, static,
+                    device="cpu")
+    monkeypatch.setitem(topt.UNPORTED, name, {value: "a branch to come"})
     with pytest.raises(NotImplementedError, match=f"opt_{name}={value}"):
-        make_fused_step(load_params(device="cpu"),
-                        Options()._replace(**{name: value}), DT, static,
+        make_fused_step(load_params(device="cpu"), opts, DT, static,
                         device="cpu")
 
 
@@ -326,3 +332,6 @@ def test_every_option_value_is_checked_or_refused():
                        or Options()._replace(**{name: v}) in sets)
             assert refused != checked, (name, v)
     assert set(topt.OPTION_VALUES) == set(Options._fields)
+    # nothing is refused: the default and 20 sets cover all 32 values
+    assert len(sets) == 20
+    assert Options(veg=2) in sets and Options(veg=5) in sets

@@ -26,6 +26,8 @@ def test_fresh_interpreter_imports_no_jax():
     mods = ["noahmp_tpu_torch"] + _submodules()
     assert "noahmp_tpu_torch.physics.sflx" in mods
     assert "noahmp_tpu_torch.kernels.tridiag" in mods
+    assert "noahmp_tpu_torch.physics.carbon" in mods
+    assert "noahmp_tpu_torch.utils" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -58,7 +60,9 @@ def test_sources_name_no_jax_import():
 
 
 @pytest.mark.parametrize("entry", ["load_params", "init_state",
-                                   "init_static", "make_step"])
+                                   "init_static", "make_step",
+                                   "make_chunk_step", "make_simulate",
+                                   "simulate"])
 def test_default_device_is_the_card(entry):
     """device=None means CUDA: without a card every entry point raises
     instead of running on the CPU."""
@@ -70,6 +74,13 @@ def test_default_device_is_the_card(entry):
         "init_static": lambda: init_static(4),
         "make_step": lambda: make_step(load_params(device="cpu"),
                                        Options(), 900.0),
+        "make_chunk_step": lambda: noahmp_tpu_torch.make_chunk_step(
+            load_params(device="cpu"), Options(), 900.0),
+        "make_simulate": lambda: noahmp_tpu_torch.make_simulate(
+            load_params(device="cpu"), Options(), 900.0),
+        "simulate": lambda: noahmp_tpu_torch.simulate(
+            load_params(device="cpu"), Options(), 900.0,
+            init_static(2, device="cpu"), None, init_state(2, device="cpu")),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -101,6 +112,10 @@ def test_importing_builds_nothing():
                              "_build")
     from noahmp_tpu_torch.kernels import _build
     assert _build.sources() == ["column", "issue_probe", "tridiag"]
+    # the carbon header is among the files the libraries' hash covers
+    assert "carbon.cuh" in os.listdir(_build.CSRC_DIR)
+    with open(os.path.join(_build.CSRC_DIR, "sflx.cuh")) as fh:
+        assert '#include "carbon.cuh"' in fh.read()
     for name in _build.sources():
         assert _build.library_path(name).startswith(build_dir)
     if not torch.cuda.is_available():

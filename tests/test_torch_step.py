@@ -21,7 +21,8 @@ from noahmp_tpu_torch.cases import (FLUX_BAR, FLUX_CEILING, REGIMES,
                                     STATE_BAR, STATE_CEILING, bar_ratio,
                                     hetero_case, to_device)
 from noahmp_tpu_torch.convert import tree_to_numpy
-from noahmp_tpu_torch.options import UNPORTED
+from noahmp_tpu_torch import options as topt
+from noahmp_tpu_torch.options import OPTION_VALUES, UNPORTED
 from noahmp_tpu_torch.physics import flux as tflux
 
 DT = 900.0
@@ -108,12 +109,29 @@ def test_cold_snow_builds_a_layer(jax_refs):
     np.testing.assert_array_equal(got[0]["nsnow"], ref_nsnow)
 
 
-@pytest.mark.parametrize("name,value", [(n, v) for n, vals in UNPORTED.items()
-                                        for v in vals])
-def test_unported_option_raises(name, value):
+@pytest.mark.parametrize("name,value", [("veg", 2), ("veg", 5)])
+def test_unported_option_raises(monkeypatch, name, value):
+    """The refusal table is empty and stays in use: a value listed in it
+    raises when a step is built, naming the value and what is missing;
+    unlisted, the same value builds."""
     params = load_params(device="cpu")
-    with pytest.raises(NotImplementedError, match=f"opt_{name}={value}"):
+    assert UNPORTED == {}
+    make_step(params, Options(**{name: value}), DT, device="cpu")
+    monkeypatch.setitem(topt.UNPORTED, name, {value: "a branch to come"})
+    with pytest.raises(NotImplementedError,
+                       match=f"opt_{name}={value}: a branch to come"):
         make_step(params, Options(**{name: value}), DT, device="cpu")
+
+
+@pytest.mark.parametrize("name,value", [(n, v) for n, vals in
+                                        OPTION_VALUES.items() for v in vals])
+def test_every_option_value_builds(name, value):
+    """Every value of every option builds the eager step; a value that
+    is none of its option's raises."""
+    params = load_params(device="cpu")
+    make_step(params, Options(**{name: value}), DT, device="cpu")
+    with pytest.raises(ValueError, match=f"opt_{name}=99"):
+        make_step(params, Options(**{name: 99}), DT, device="cpu")
 
 
 def test_default_options_are_ported():
