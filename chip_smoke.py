@@ -95,10 +95,17 @@ CORRUPT_SOLDN = 1.0e7               # W/m2: breaks the budgets by rounding
 CARBON_OPTIONS = (Options(veg=2, crs=1), Options(veg=5))
 CARBON_CASES = ("uniform", "hetero/warm_day", "hetero/cold_snow")
 NONVEG_CLASSES = (1, 16, 19, 24)    # urban, water, barren, ice (USGS)
-# what an offline driver accumulates: an output-window mean and the
-# three budget residuals
-CHUNK_ACC = (("fsh", "sum"), ("errsw", "absmax"), ("erreng", "absmax"),
-             ("errwat", "absmax"))
+# What the JAX package's offline driver accumulates in a chunk
+# (noahmp_tpu/driver/run.py:218): the output writer's default fields
+# (noahmp_tpu/driver/io.py:600) as window sums, and the three budget
+# residuals as absmax.  18 + 3 accumulators, 24 small launches a step.
+WRITER_FIELDS = ("fsa", "fsr", "fira", "fsh", "fcev", "fgev", "fctr", "ssoil",
+                 "trad", "ecan", "etran", "edir", "runsrf", "runsub", "fsno",
+                 "albedo", "gpp", "nee")
+RESIDUALS = ("errsw", "erreng", "errwat")
+CHUNK_ACC = (tuple((f, "sum") for f in WRITER_FIELDS)
+             + tuple((f, "absmax") for f in RESIDUALS))
+ACC_AT = {field: k for k, (field, _op) in enumerate(CHUNK_ACC)}
 
 # Gathered parameters the physics uses under the default options: what
 # the byte bound counts, since the bound is what the function needs.
@@ -867,9 +874,10 @@ def assert_bit_equal(label, want, got):
 
 
 def phase_chunk(params, device, n, t_fused, t_eager, t_simulate):
-    """make_chunk_step over the fused step and over the eager step, and
-    simulate with collected fluxes: each the very bits of the same
-    number of single steps.  The entry points run first, launch counts
+    """make_chunk_step over the fused step and over the eager step,
+    make_simulate over the fused step and simulate (the eager step, as
+    many steps as the eager chunk) with collected fluxes: each the very
+    bits of the same number of single steps.  The entry points run first, launch counts
     zeroed just before and read just after; the single steps they are
     held against come afterwards."""
     case = hetero_case("warm_day", n)
@@ -890,15 +898,17 @@ def phase_chunk(params, device, n, t_fused, t_eager, t_simulate):
                             zero_acc(CHUNK_ACC, n, device))
     got_eager = chunk_eager(static, f_eager, state0,
                             zero_acc(CHUNK_ACC, n, device))
-    got_sim = simulate(params, Options(), DT, static, f_sim, state0,
-                       collect_fluxes=True, fused=True, device=device)
+    got_sim = make_simulate(params, Options(), DT, collect_fluxes=True,
+                            static=static, device=device)(None, f_sim, state0)
+    got_sim_eager = simulate(params, Options(), DT, static, f_eager, state0,
+                             collect_fluxes=True, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches = {"column": column_cuda.launches,
                 "thomas": dict(thomas_cuda.launches_by_rows)}
     if device.type == "cuda":
         want = {"column": t_fused + t_simulate,
-                "thomas": {r: k * t_eager
+                "thomas": {r: k * 2 * t_eager
                            for r, k in LAUNCHES_PER_STEP.items()}}
         if launches != want:
             raise AssertionError(f"chunk path: launches {launches}, "
@@ -909,31 +919,36 @@ def phase_chunk(params, device, n, t_fused, t_eager, t_simulate):
     assert_bit_equal("chunk over the fused step", tuple(s) + acc,
                      tuple(got_fused[0]) + got_fused[1])
     res = check_outputs("chunk over the fused step", case[0], s, _fl[-1])
-    s, acc, _fl, _bad = steps_by_hand(eager, static, f_eager, state0,
-                                      CHUNK_ACC, n, device)
+    s, acc, fluxes, _bad = steps_by_hand(eager, static, f_eager, state0,
+                                         CHUNK_ACC, n, device)
     assert_bit_equal("chunk over the eager step", tuple(s) + acc,
                      tuple(got_eager[0]) + got_eager[1])
+    stacked = Flux(*[torch.stack(leaves) for leaves in zip(*fluxes)])
+    assert_bit_equal("simulate", tuple(s) + tuple(stacked),
+                     tuple(got_sim_eager[0]) + tuple(got_sim_eager[1]))
     s, _acc, fluxes, _bad = steps_by_hand(fused, static, f_sim, state0, (),
                                           n, device)
     stacked = Flux(*[torch.stack(leaves) for leaves in zip(*fluxes)])
-    assert_bit_equal("simulate over the fused step", tuple(s) + tuple(stacked),
+    assert_bit_equal("make_simulate over the fused step",
+                     tuple(s) + tuple(stacked),
                      tuple(got_sim[0]) + tuple(got_sim[1]))
     if tuple(got_sim[1].fsh.shape) != (t_simulate, n) or tuple(
             got_sim[1].fsa.shape) != (t_simulate, n):
         raise AssertionError("simulate: fluxes are not stacked (T, n)")
     # the accumulated residuals stay under the reference's abort bound
     land = torch.from_numpy(case[0]["ist"] == 1).to(device)
-    worst = {field: float(a[land].max()) for (field, _op), a in
-             zip(CHUNK_ACC[1:], got_fused[1][1:])}
+    worst = {field: float(got_fused[1][ACC_AT[field]][land].max())
+             for field in RESIDUALS}
     for field, v in worst.items():
         if not v < RESIDUAL_BOUND:
             raise AssertionError(f"chunk: max|{field}| over {t_fused} steps "
                                  f"= {v}, bound {RESIDUAL_BOUND}")
     emit("chunk", n=n, case="hetero/warm_day", acc_spec=CHUNK_ACC,
-         fused_steps=t_fused, eager_steps=t_eager, simulate_steps=t_simulate,
+         fused_steps=t_fused, eager_steps=t_eager,
+         make_simulate_fused_steps=t_simulate, simulate_eager_steps=t_eager,
          bit_equal_to_single_steps=True, launches=launches,
          max_abs_residual_over_chunk=worst,
-         mean_fsh=float(got_fused[1][0].mean()) / t_fused,
+         mean_fsh=float(got_fused[1][ACC_AT["fsh"]].mean()) / t_fused,
          **{f"last_step_max_abs_{k}": v for k, v in res.items()})
     return launches
 
@@ -993,8 +1008,10 @@ def phase_strict(params, device, n, steps, bad_at, t_eager):
                                      "finite after the corrupt step")
         report.append({"path": path, "steps": t_len, "corrupt_step": k,
                        "bad_step": int(bad), "clean_bad_step": STRICT_SENTINEL,
-                       "max_abs_errsw_at_stop": float(acc[1].max()),
-                       "max_abs_erreng_at_stop": float(acc[2].max())})
+                       "max_abs_errsw_at_stop": float(
+                           acc[ACC_AT["errsw"]].max()),
+                       "max_abs_erreng_at_stop": float(
+                           acc[ACC_AT["erreng"]].max())})
     emit("strict", n=n, case="hetero/warm_day", tolerance=STRICT_TOL,
          corrupt_soldn=CORRUPT_SOLDN, sentinel=STRICT_SENTINEL, cases=report)
 
@@ -1038,7 +1055,8 @@ def phase_chunk_no_sync(params, device, n, steps=4):
 def phase_chunk_timing(params, device, n, steps, reps=5):
     """ms a step of the fused step driven four ways, in turns in one
     call: a synchronise after every step; free-running (``steps`` single
-    steps, one synchronise at the end); one chunk of ``steps`` (with the
+    steps, one synchronise at the end; the same with each step's Forcing
+    sliced from the stacked one); one chunk of ``steps`` (with the
     accumulators of CHUNK_ACC, and with none); one strict chunk.  For
     each also the host's share: the time until the last step is
     enqueued."""
@@ -1065,8 +1083,16 @@ def phase_chunk_timing(params, device, n, steps, reps=5):
         for _ in range(steps):
             s, _ = fused(None, forcing, s)
 
+    def free_running_sliced():
+        # what a chunk would do without the plan's stacked Forcing: a
+        # new Forcing of row views every step, checked leaf by leaf
+        s = state
+        for t in range(steps):
+            s, _ = fused(None, Forcing(*[leaf[t] for leaf in forcings]), s)
+
     ways = {"synchronised_every_step": synchronised,
             "free_running": free_running,
+            "free_running_sliced_forcing": free_running_sliced,
             "chunk": lambda: chunk(None, forcings, state, acc),
             "chunk_no_accumulators": lambda: bare(None, forcings, state, ()),
             "strict_chunk": lambda: strict(None, forcings, state, acc)}
@@ -1629,6 +1655,8 @@ def main():
         "chunk_ms_per_step": chunk_timing["chunk"]["ms_per_step"],
         "chunk_host_enqueue_ms_per_step":
             chunk_timing["chunk"]["host_enqueue_ms_per_step"],
+        "chunk_no_accumulators_ms_per_step":
+            chunk_timing["chunk_no_accumulators"]["ms_per_step"],
         "strict_ms_per_step": chunk_timing["strict_chunk"]["ms_per_step"],
         "step_wall_ms": timing["wall_ms"],
         "host_share_ms": timing["wall_ms"] - timing["ms"],
@@ -1657,7 +1685,8 @@ def main():
                   "ms_opt_veg_2 and water_stage_ms_opt_veg_2: the step and "
                   "its water stage with the carbon branch on, same call; "
                   "chunk_ms_per_step and strict_ms_per_step: host clock over "
-                  f"one chunk of {T_CHUNK} steps, median of 5, in turns with "
+                  f"one chunk of {T_CHUNK} steps with the {len(CHUNK_ACC)} "
+                  "accumulators of an offline run, median of 5, in turns with "
                   "the free-running steps (phase chunk_timing); "
                   "stages[].ms: one launch alone, back to back with itself; "
                   "plain_ms: summed device time of the eager step's kernels "

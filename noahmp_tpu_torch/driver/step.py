@@ -125,62 +125,49 @@ STRICT_TOL = 0.01          # W/m2
 ACC_OPS = ("sum", "absmax")
 
 
+def _num_steps(forcings):
+    steps = {tuple(leaf.shape[:1]) for leaf in forcings}
+    if len(steps) != 1 or forcings[0].dim() != 2:
+        raise ValueError("forcings: every leaf must be stacked (T, n) "
+                         f"with one T; got {sorted(steps)}")
+    return forcings[0].shape[0]
+
+
 def _sequence_step(params, opts, dt, static, device):
-    """What the multi-step entry points loop over.  Returns (check,
-    advance, device): ``check(static, forcings, state)`` runs once per
-    sequence and returns the number of steps T; ``advance(static,
-    forcings, t, state) -> (state, flux)`` is step ``t`` of the stacked
-    Forcing.  With ``static`` given at build the step is the fused one
-    for that domain, else the eager one."""
+    """What the multi-step entry points loop over.  Returns (advance,
+    device): ``advance(static, forcings, t, state) -> (state, flux)`` is
+    step ``t`` of the stacked Forcing.  With ``static`` given at build
+    the step is the fused one for that domain, else the eager one."""
     if static is None:
         single = make_step(params, opts, dt, device=device)
     else:
         single = make_fused_step(params, opts, dt, static, device=device)
-    device = single.device
     plan = getattr(single, "plan", None)
-    dt_t = torch.tensor(float(dt), dtype=torch.float32, device=device)
-
-    def check(static_now, forcings, state):
-        steps = {tuple(leaf.shape[:1]) for leaf in forcings}
-        if len(steps) != 1 or forcings[0].dim() != 2:
-            raise ValueError("forcings: every leaf must be stacked (T, n) "
-                             f"with one T; got {sorted(steps)}")
-        if plan is None:
-            # the card's fused step checks every leaf it is handed itself
-            _check_devices([forcings, state]
-                           + ([static_now] if static is None else []), device)
-        return forcings[0].shape[0]
 
     if plan is not None:
+        # the plan checks the stacked Forcing once and points step t at
+        # its row t
         def advance(_static, forcings, t, state):
             return column_cuda(plan, forcings, state, t)
-    elif static is not None:
-        def advance(_static, forcings, t, state):
-            forcing = Forcing(*[leaf[t] for leaf in forcings])
-            return column_plain(single.gathered, opts, static, forcing,
-                                state, dt_t)
     else:
         def advance(static_now, forcings, t, state):
-            forcing = Forcing(*[leaf[t] for leaf in forcings])
-            return step_columns(single.params, opts, static_now, forcing,
-                                state, dt_t)
+            return single(static_now, Forcing(*[leaf[t] for leaf in forcings]),
+                          state)
 
-    return check, advance, device
+    return advance, single.device
 
 
 def simulate(params, opts, dt, static, forcings, state0,
-             collect_fluxes=True, fused=False, device=None):
-    """Run a forcing sequence.  ``forcings`` is a Forcing whose leaves
-    have a leading time axis (then the land-point axis).  Returns
-    (final_state, fluxes): every Flux leaf stacked ``(T, ...)``, or
-    ``None`` when ``collect_fluxes`` is false.
+             collect_fluxes=True, device=None):
+    """Run a forcing sequence through the eager step.  ``forcings`` is a
+    Forcing whose leaves have a leading time axis (then the land-point
+    axis).  Returns (final_state, fluxes): every Flux leaf stacked
+    ``(T, ...)``, or ``None`` when ``collect_fluxes`` is false.
 
-    ``fused=True`` advances through the fused column kernels (the
-    domain is ``static``), else through the eager step.  ``device=None``
-    means the card and raises when CUDA is not available.  Callers who
-    run many sequences build the step once with ``make_simulate``."""
-    sim = make_simulate(params, opts, dt, collect_fluxes,
-                        static if fused else None, device)
+    ``device=None`` means the card and raises when CUDA is not
+    available.  Callers who run many sequences, or who want the fused
+    column kernels, build the step once with ``make_simulate``."""
+    sim = make_simulate(params, opts, dt, collect_fluxes, device=device)
     return sim(static, forcings, state0)
 
 
@@ -192,11 +179,11 @@ def make_simulate(params, opts, dt, collect_fluxes=True, static=None,
     With ``static`` given the returned function ignores its first
     argument, as the fused step does.  The loop over T enqueues and
     returns: nothing in it waits for the card."""
-    check, advance, device = _sequence_step(params, opts, dt, static, device)
+    advance, device = _sequence_step(params, opts, dt, static, device)
 
     def sim(static_now, forcings, state):
         with torch.no_grad():
-            steps = check(static_now, forcings, state)
+            steps = _num_steps(forcings)
             if collect_fluxes and not steps:
                 raise ValueError("forcings hold no step: nothing to collect")
             fluxes = []
@@ -255,7 +242,7 @@ def make_chunk_step(params, opts, dt, acc_spec=(), strict_budgets=False,
                              f"one of {ACC_OPS}")
         if field not in Flux._fields:
             raise ValueError(f"acc_spec: Flux has no field {field!r}")
-    check, advance, device = _sequence_step(params, opts, dt, static, device)
+    advance, device = _sequence_step(params, opts, dt, static, device)
 
     def accumulate(acc, flux, frozen):
         for a, (field, op) in zip(acc, acc_spec):
@@ -274,7 +261,7 @@ def make_chunk_step(params, opts, dt, acc_spec=(), strict_budgets=False,
             raise ValueError(f"acc holds {len(acc)} accumulators, acc_spec "
                              f"names {len(acc_spec)}")
         with torch.no_grad():
-            steps = check(static_now, forcings, state)
+            steps = _num_steps(forcings)
             if not strict_budgets:
                 for t in range(steps):
                     state, flux = advance(static_now, forcings, t, state)

@@ -75,9 +75,14 @@ def test_simulate_collects_what_jax_collects(jax_refs, fused):
     """Final state and every Flux leaf stacked (T, ...), step by step."""
     ref_state, ref_flux = jax_refs[True]
     static, forcings, state = torch_case()
-    got_state, got_flux = simulate(load_params(device="cpu"), Options(), DT,
-                                   static, forcings, state, fused=fused,
-                                   device="cpu")
+    params = load_params(device="cpu")
+    if fused:
+        got_state, got_flux = make_simulate(
+            params, Options(), DT, static=static, device="cpu")(
+                None, forcings, state)
+    else:
+        got_state, got_flux = simulate(params, Options(), DT, static,
+                                       forcings, state, device="cpu")
     assert isinstance(got_flux, Flux)
     assert tuple(got_flux.fsh.shape) == (T, N)
     assert_tree_close(ref_state, tree_to_numpy(got_state), STATE_BAR,
