@@ -20,7 +20,12 @@ Then the further paths, each with its own launch counts: the
 carbon pools (``opt_veg`` 2 and 5) through both steps, and the
 multi-step entry points (``make_chunk_step`` over both steps, plain and
 with strict budgets, and ``simulate``), held bit for bit against the same
-number of single steps and checked for host synchronisations.
+number of single steps and checked for host synchronisations.  Last the
+offline driver on the generated CONUS case: through the CLI and as a
+resume, exact and compact forcing, at 1,048,576 points, the kernels
+against their plain version on that domain, and the card against the
+CPU, where the points outside the bars are counted and each explained
+or not by what the plain step does under a last-bit change.
 
 Each phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}``; then the card's name and power limit; the last
@@ -44,7 +49,11 @@ issue slots it costs under the build's flags, which a probe kernel
 """
 
 import argparse
+import contextlib
+import copy
 import ctypes
+import datetime
+import filecmp
 import gzip
 import json
 import math
@@ -55,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -62,13 +72,18 @@ import torch
 
 from noahmp_tpu_torch import (STRICT_SENTINEL, Options, load_params,
                               make_chunk_step, make_fused_step, make_simulate,
-                              make_step, simulate)
+                              make_step, simulate, utils)
 from noahmp_tpu_torch.cases import (CARBON_BAR, CARBON_POOLS, FLUX_BAR,
                                     FLUX_CEILING, REGIMES, STATE_BAR,
                                     STATE_CEILING, bar_ratio, carbon_ratios,
-                                    forcing_sequence, hetero_case, scaled_err,
+                                    conus_case, forcing_sequence, hetero_case,
+                                    point_ratios, run_ratio, scaled_err,
                                     to_device, uniform_case)
 from noahmp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
+from noahmp_tpu_torch.driver import cli as driver_cli
+from noahmp_tpu_torch.driver import io as driver_io
+from noahmp_tpu_torch.driver import run as driver_run
+from noahmp_tpu_torch.driver.config import Config
 from noahmp_tpu_torch.driver.step import STRICT_TOL
 from noahmp_tpu_torch.kernels import _build, column
 from noahmp_tpu_torch.kernels.column import column_cuda, column_plain
@@ -77,7 +92,9 @@ from noahmp_tpu_torch.kernels.tridiag import (reset_launches, thomas_cuda,
 from noahmp_tpu_torch.kernels._build import load_library
 from noahmp_tpu_torch.numerics.tridiag import masked_identity_rows
 from noahmp_tpu_torch.options import fused_option_sets
-from noahmp_tpu_torch.state import Flux, Forcing
+from noahmp_tpu_torch.params.gathered import gather_params
+from noahmp_tpu_torch.physics import flux as flux_physics
+from noahmp_tpu_torch.state import Flux, Forcing, State, Static
 
 SEED = 0
 N_POINTS = 65536
@@ -106,6 +123,63 @@ RESIDUALS = ("errsw", "erreng", "errwat")
 CHUNK_ACC = (tuple((f, "sum") for f in WRITER_FIELDS)
              + tuple((f, "absmax") for f in RESIDUALS))
 ACC_AT = {field: k for k, (field, _op) in enumerate(CHUNK_ACC)}
+
+# The offline driver (noahmp_tpu_torch/driver): the generated CONUS case
+# (cases.conus_case: hourly NetCDF forcing, 15-minute steps, 3-hourly
+# output, daily restarts) at the size of a regional run on one card
+N_OFFLINE = 131072
+OFFLINE_DAYS = 2
+OFFLINE_BUDGETS_EVERY = 12          # advisory budget check, steps
+OFFLINE_FORCING_HOURS = 12          # offline_forcing: exact and compact
+OFFLINE_LARGE_HOURS = 6             # offline_large at N_LARGE points
+N_OFFLINE_CPU = 4096                # offline_cpu_agreement
+OFFLINE_CPU_HOURS = 6
+RESYNC_STEPS = 3    # offline_kernel_agreement: from the init State and
+                    # from the last restart of offline_case, each
+# Two implementations of the step that differ in the last bit part
+# beyond the step's bars, from the same State, at a few points of the
+# generated CONUS case: the canopy loop of physics/flux.py:vege_flux
+# reads the under-canopy stability from tg - tah (two numbers near 280 K
+# whose difference is near 0), which amplifies a last-bit difference some
+# 10^3 times, and its exit test (|dTV| <= DTV_EXIT from the fifth trip)
+# then leaves the loop at another trip; a snow surface at the freezing
+# point takes the cap at TFRZ or not.  column_plain itself, given State.tv
+# moved by one ulp, puts 61 of 4,096 points beyond the bars, up to 344
+# times them (--cpu-conditioning prints these figures and those below
+# that come from the CPU).  A point outside the bars is explained when
+# column_plain comes within the bars of the kernel there with the exit
+# threshold moved by one of EXIT_VARIANTS, or with State.tv, State.tg
+# and every Forcing leaf moved by one ulp (ONE_ULP_DRAWS draws): what
+# the model gives at that point under a change it cannot tell from
+# rounding.  A fault is not reproduced so
+EXIT_VARIANTS = (-0.2, -0.1, -0.05, -0.02, 0.02, 0.05, 0.1, 0.2)
+ONE_ULP_DRAWS = 8
+# What may stay unexplained in a step taken from the same State: on the
+# CPU the host build of the kernels against column_plain, 12 steps at
+# 4,096 points, left 21 of 154 outside points unexplained by the exit
+# alone (at most 5 in a step, the worst 13.3 times the bars, Flux.shg
+# 1.25 against 1.33 W/m2), 2 with the one-ulp draws too (the worst 2.2
+# times the bars, Flux.shg); a fault in a branch puts the points that
+# take it outside, unexplained, and a land-use class with them
+UNEXPLAINED_SHARE = 0.0025          # of the points, in any step
+UNEXPLAINED_RATIO = 16.0            # times the step's bars, at any point
+UNEXPLAINED_CLASS_SHARE = 0.02      # of a land-use class of >= 100 points
+# Card against CPU crosses math libraries, whose last-bit differences
+# enter at every operation of the canopy loop, and a one-ulp change of
+# the inputs does not reproduce all they do: column_plain on the card
+# parts from column_plain on the CPU as far as the CPU's float32 step
+# parts from the same step in float64 (55-105 and 78-119 of 4,096 points
+# a step outside the bars), and column_cuda gives column_plain's values
+# on the card.  So there a point is also explained when the float64 step
+# or column_plain on the card comes within the bars of the kernel
+# A free run of 24 steps, card against CPU, every ldasout field and the
+# final State against cases.run_ratio: the CPU run against itself with
+# the initial tg moved by one ulp has up to 3 of 4,096 points outside,
+# the worst 6.1 times (sneqv), in three draws; the phase measures that
+# spread again (SELF_SPREAD_DRAWS)
+FREE_RUN_OUTLIERS = 0.005           # of the points
+FREE_RUN_RATIO = 10.0               # times cases.run_ratio, at any point
+SELF_SPREAD_DRAWS = 2
 
 # Gathered parameters the physics uses under the default options: what
 # the byte bound counts, since the bound is what the function needs.
@@ -1123,6 +1197,770 @@ def phase_chunk_timing(params, device, n, steps, reps=5):
     return out
 
 
+class HostSplit:
+    """What the host does during an offline run, from timers put around
+    the functions and methods that ``run_offline`` calls (installed on
+    entry, removed on exit): forcing assembly (provider calls, compact
+    chunks) and uploads on the prefetch thread, the chunk's enqueue and
+    the wait for the next chunk on the main thread, and the sink's jobs
+    (fetches and file writes) on its thread.  Also the bytes uploaded,
+    and the loop's wall time: from the prefetcher's start to the sink's
+    close."""
+
+    PARTS = ("forcing_assembly", "upload", "chunk_enqueue", "prefetch_wait",
+             "sink")
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(self.PARTS, 0.0)
+        self.h2d_bytes = 0
+        self.loop = [None, None]
+        self._lock = threading.Lock()
+        self._undo = []
+
+    def _add(self, part, seconds, nbytes=0):
+        with self._lock:
+            self.seconds[part] += seconds
+            self.h2d_bytes += nbytes
+
+    def _timed(self, part, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._add(part, time.perf_counter() - t0)
+        return wrapper
+
+    def _patch(self, owner, name, wrap):
+        old = getattr(owner, name)
+        self._undo.append((owner, name, old))
+        setattr(owner, name, wrap(old))
+
+    def __enter__(self):
+        def upload(fn):
+            def wrapper(a, device):
+                t0 = time.perf_counter()
+                out = fn(a, device)
+                self._add("upload", time.perf_counter() - t0,
+                          np.asarray(a).nbytes)
+                return out
+            return wrapper
+
+        def submit(fn):
+            def wrapper(sink, job, *args, **kwargs):
+                return fn(sink, self._timed("sink", job), *args, **kwargs)
+            return wrapper
+
+        def chunk_factory(make):
+            def wrapper(*args, **kwargs):
+                return self._timed("chunk_enqueue", make(*args, **kwargs))
+            return wrapper
+
+        def start(fn):
+            def wrapper(obj, *args, **kwargs):
+                self.loop[0] = time.perf_counter()
+                return fn(obj, *args, **kwargs)
+            return wrapper
+
+        def end(fn):
+            def wrapper(obj):
+                try:
+                    return fn(obj)
+                finally:
+                    self.loop[1] = time.perf_counter()
+            return wrapper
+
+        self._patch(driver_io, "_upload", upload)
+        self._patch(driver_io, "compact_chunk",
+                    lambda fn: self._timed("forcing_assembly", fn))
+        self._patch(driver_io.FileForcing, "__call__",
+                    lambda fn: self._timed("forcing_assembly", fn))
+        self._patch(driver_io.ChunkPrefetcher, "get",
+                    lambda fn: self._timed("prefetch_wait", fn))
+        self._patch(driver_io.ChunkPrefetcher, "__init__", start)
+        self._patch(driver_io.AsyncSink, "submit", submit)
+        self._patch(driver_io.AsyncSink, "close", end)
+        self._patch(driver_run, "make_chunk_step", chunk_factory)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._undo):
+            setattr(owner, name, old)
+        self._undo.clear()
+
+    def report(self, n, steps):
+        """Loop seconds, rates, and each part in ms a step."""
+        loop = self.loop[1] - self.loop[0]
+        return {"loop_seconds": loop, "ms_per_step": loop / steps * 1e3,
+                "point_steps_per_s": n * steps / loop,
+                "h2d_bytes_per_step": self.h2d_bytes / steps,
+                "host_ms_per_step": {k: v / steps * 1e3
+                                     for k, v in self.seconds.items()}}
+
+
+class ResidualRecorder:
+    """Wraps ``utils.check_budgets`` (the advisory check the run calls on
+    its sink every N steps) to keep the largest |errsw|, |erreng| and
+    |errwat| (land points for errwat, as the check does) it was handed,
+    then runs the check itself."""
+
+    def __init__(self):
+        self.worst = dict.fromkeys(RESIDUALS, 0.0)
+        self.calls = 0
+
+    def __enter__(self):
+        self._real = utils.check_budgets
+
+        def record(flux, *args, ist=None, **kwargs):
+            for name in RESIDUALS:
+                v = np.abs(utils._host(getattr(flux, name)))
+                if name == "errwat" and ist is not None:
+                    v = np.where(utils._host(ist) == 1, v, 0.0)
+                self.worst[name] = max(self.worst[name], float(v.max()))
+            self.calls += 1
+            return self._real(flux, *args, ist=ist, **kwargs)
+
+        utils.check_budgets = record
+        return self
+
+    def __exit__(self, *exc):
+        utils.check_budgets = self._real
+
+
+def offline_cfg(case_dir, tag, hours=None):
+    """The case's namelist, outputs under ``tag``, cut to ``hours``
+    model hours when given."""
+    cfg = Config.from_namelist(os.path.join(case_dir, "case.nml"))
+    cfg.outdir = os.path.join(case_dir, tag, "ldasout")
+    cfg.resdir = os.path.join(case_dir, tag, "restart")
+    if hours is not None:
+        cfg.enddatetime = cfg.begdatetime + datetime.timedelta(hours=hours)
+    return cfg
+
+
+def write_case(n, days, work, out_hours=3, hours=None):
+    """``cases.conus_case`` under ``work``; with ``out_hours`` other than
+    3 or ``hours`` given, its namelist is rewritten to that output
+    frequency (restarts too) and that many model hours (a rehearsal on
+    the CPU runs 2 hours of hourly windows)."""
+    case = conus_case(n, seed=SEED, days=days,
+                      outdir=os.path.join(work, f"conus_{n}"))
+    if out_hours != 3 or hours is not None:
+        nml = os.path.join(case, "case.nml")
+        with open(nml) as fh:
+            text = fh.read()
+        for key in ("output_frequency", "restart_frequency"):
+            text = re.sub(rf"{key} = '[^']*'", f"{key} = '{out_hours} hour'",
+                          text)
+        if hours is not None:
+            end = Config.from_namelist(nml).begdatetime + datetime.timedelta(
+                hours=hours)
+            for key in ("year", "month", "day", "hour"):
+                text = re.sub(rf"end_{key}\s*= \d+",
+                              f"end_{key} = {getattr(end, key)}", text)
+        with open(nml, "w") as fh:
+            fh.write(text)
+    return case
+
+
+def check_ldasout(label, files):
+    """Every field of every ldasout file finite."""
+    for path in files:
+        for name, leaf in driver_io.load_arrays(path).items():
+            if not np.isfinite(leaf).all():
+                raise AssertionError(f"{label}: {os.path.basename(path)} "
+                                     f"{name} not finite")
+
+
+def states_bit_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def file_forcing(cfg, static_host, when, device):
+    """The case's Forcing at ``when`` (``FileForcing``) on ``device``."""
+    provider = driver_io.FileForcing(cfg.indir, cfg.infreq, static_host,
+                                     prefetch=False)
+    return tree_from_numpy(Forcing, {k: np.array(v) for k, v in
+                                     provider(when)._asdict().items()},
+                           device)
+
+
+def offline_kernel_ms(params, cfg, state, device):
+    """The fused step's kernels alone on the case's own domain and final
+    State (one input set), device milliseconds."""
+    static = driver_io.load_domain(cfg.constfile, device)
+    forcing = file_forcing(cfg, driver_io.static_to_host(static),
+                           cfg.begdatetime, device)
+    fused = make_fused_step(params, cfg.options, cfg.dt, static,
+                            device=device)
+    return time_cuda(lambda f, s: fused(None, f, s), [(forcing, state)],
+                     device=device)
+
+
+def phase_offline_case(params, device, n, days, work, out_hours=3,
+                       hours=None):
+    """The offline driver end to end, as a user runs it: ``cases.
+    conus_case`` writes the case, ``driver.cli.main`` runs it (chunk
+    dispatch, advisory budget check every OFFLINE_BUDGETS_EVERY steps).
+    Launch counts zeroed just before, read just after.  Then the same
+    case through ``run_offline`` as its first half and a resume from the
+    restart written there to the end: the same State, bit for bit, and
+    the same ldasout files."""
+    t0 = time.perf_counter()
+    case = write_case(n, days, work, out_hours, hours)
+    gen_seconds = time.perf_counter() - t0
+    nml = os.path.join(case, "case.nml")
+    argv = [nml, "--check-budgets", str(OFFLINE_BUDGETS_EVERY),
+            "--dispatch", "chunk"]
+    if device.type == "cpu":
+        argv += ["--device", "cpu"]
+    cfg = Config.from_namelist(nml)
+    steps = cfg.nsteps
+
+    column.reset_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    with HostSplit() as split, ResidualRecorder() as residuals:
+        state, files = driver_cli.main(argv)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"column": column_cuda.launches,
+                "thomas": thomas_cuda.launches}
+    if device.type == "cuda" and launches != {"column": steps, "thomas": 0}:
+        raise AssertionError(f"offline path: launches {launches}, expected "
+                             f"one column_cuda call for each of {steps} "
+                             "steps and no Thomas launch")
+    want = int((cfg.enddatetime - cfg.begdatetime).total_seconds()
+               // (3600 * out_hours))
+    if len(files) != want:
+        raise AssertionError(f"offline case: {len(files)} ldasout files, "
+                             f"expected {want}")
+    check_ldasout("offline case", files)
+    tols = {"errsw": utils.SW_TOL, "erreng": utils.ENG_TOL,
+            "errwat": utils.WAT_TOL}
+    if residuals.calls == 0:
+        raise AssertionError("offline case: the budget check never ran")
+    for name, v in residuals.worst.items():
+        if not v < tols[name]:
+            raise AssertionError(f"offline case: window absmax |{name}| "
+                                 f"{v}, bound {tols[name]}")
+
+    # the first half, then a resume from the restart written there
+    first = offline_cfg(case, "resume")
+    first.enddatetime = first.begdatetime + (
+        cfg.enddatetime - cfg.begdatetime) / 2
+    driver_run.run_offline(first, verbose=False, device=device)
+    stamp = first.enddatetime.strftime("%Y%m%d%H%M")
+    second = offline_cfg(case, "resume")
+    second.restart = True
+    second.resfile = f"restart_{stamp}.nc"
+    resumed, resumed_files = driver_run.run_offline(second, verbose=False,
+                                                    device=device)
+    if not states_bit_equal(state, resumed):
+        raise AssertionError("offline case: the resumed State differs from "
+                             "the uninterrupted one")
+    day2 = files[len(files) - len(resumed_files):]
+    for a, b in zip(day2, resumed_files):
+        if os.path.basename(a) != os.path.basename(b) or not filecmp.cmp(
+                a, b, shallow=False):
+            raise AssertionError(f"offline case: resumed {b} differs")
+    kernel_ms = (offline_kernel_ms(params, cfg, state, device)
+                 if device.type == "cuda" else None)
+    out = split.report(n, steps)
+    emit("offline_case", n=n, days=days, steps=steps, dt=cfg.dt,
+         output_hours=out_hours,
+         entry="driver.cli.main " + " ".join(argv[1:]),
+         forcing_mode="exact", case_seconds=gen_seconds, wall_seconds=wall,
+         ldasout_files=len(files), all_fields_finite=True,
+         window_absmax=residuals.worst, budget_checks=residuals.calls,
+         bounds=tols, resumed_state_bit_equal=True,
+         resumed_files_equal=len(resumed_files), launches=launches,
+         kernel_ms_per_step=kernel_ms,
+         kernel_share=(kernel_ms / out["ms_per_step"] if kernel_ms else None),
+         **out,
+         note="loop: from the forcing prefetcher's start to the sink's "
+              "close (host clock); host_ms_per_step: summed time of each "
+              "part, on three threads (prefetch: forcing_assembly, upload; "
+              "main: chunk_enqueue, prefetch_wait; sink); kernel_ms_per_step:"
+              " the fused step's kernels alone on this domain (CUDA events)")
+    return case, launches, {"wall_seconds": wall, **out,
+                            "kernel_ms_per_step": kernel_ms}
+
+
+def phase_offline_forcing(device, case, n, hours, reps=2):
+    """The first ``hours`` model hours of the case with the exact forcing
+    stack and with compact forcing, in turns: bytes uploaded, ms a step,
+    the host's split, and the final State of compact against exact."""
+    modes = ("exact", "compact")
+    runs = {m: [] for m in modes}
+    states = {}
+    for i in range(reps):
+        for mode in (modes if i % 2 == 0 else modes[::-1]):
+            cfg = offline_cfg(case, f"forcing_{mode}_{i}", hours)
+            with HostSplit() as split:
+                state, _files = driver_run.run_offline(
+                    cfg, verbose=False, device=device, forcing_mode=mode)
+            runs[mode].append(split.report(n, cfg.nsteps))
+            states[mode] = state
+    steps = offline_cfg(case, "x", hours).nsteps
+    ratios = {}
+    for name, ref, got in zip(State._fields, states["exact"],
+                              states["compact"]):
+        ratios[name] = run_ratio(ref.cpu().numpy(), got.cpu().numpy(),
+                                 STATE_BAR, STATE_CEILING, steps)
+    worst = max(ratios, key=ratios.get)
+    if not ratios[worst] <= 1.0:
+        raise AssertionError(f"offline forcing: compact against exact, "
+                             f"State.{worst} at {ratios[worst]} of the bar")
+    summary = {}
+    for mode in modes:
+        r = runs[mode]
+        summary[mode] = {
+            "ms_per_step": statistics.median(x["ms_per_step"] for x in r),
+            "ms_per_step_runs": [x["ms_per_step"] for x in r],
+            "point_steps_per_s": statistics.median(
+                x["point_steps_per_s"] for x in r),
+            "h2d_bytes_per_step": r[0]["h2d_bytes_per_step"],
+            "host_ms_per_step": {
+                k: statistics.median(x["host_ms_per_step"][k] for x in r)
+                for k in HostSplit.PARTS}}
+    emit("offline_forcing", n=n, hours=hours, steps=steps, reps=reps,
+         in_turns=True, **summary,
+         compact_vs_exact_worst_share_of_bar=ratios[worst],
+         compact_vs_exact_worst_leaf=worst,
+         compact_vs_exact_bit_equal_leaves=sum(
+             torch.equal(a, b) for a, b in zip(states["exact"],
+                                              states["compact"])),
+         note="run_offline, chunk dispatch; ms_per_step: host clock over "
+              "the loop, median of the runs; h2d_bytes_per_step: bytes "
+              "handed to the prefetcher's uploads; compact vs exact: "
+              "cases.run_ratio over the run's steps")
+    return summary
+
+
+def phase_offline_large(device, n, hours, work, kernel_ms_large, out_hours=3):
+    """Compact forcing at ``n`` points for ``hours`` model hours (two
+    3-hourly windows), through run_offline."""
+    t0 = time.perf_counter()
+    case = write_case(n, 1, work, out_hours)
+    gen_seconds = time.perf_counter() - t0
+    cfg = offline_cfg(case, "large", hours)
+    column.reset_launches()
+    t0 = time.perf_counter()
+    with HostSplit() as split:
+        state, files = driver_run.run_offline(cfg, verbose=False,
+                                              device=device,
+                                              forcing_mode="compact")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_ldasout("offline large", files)
+    if len(files) != hours // out_hours:
+        raise AssertionError(f"offline large: {len(files)} ldasout files")
+    if device.type == "cuda" and column_cuda.launches != cfg.nsteps:
+        raise AssertionError(f"offline large: {column_cuda.launches} "
+                             f"column_cuda calls for {cfg.nsteps} steps")
+    out = split.report(n, cfg.nsteps)
+    emit("offline_large", n=n, hours=hours, steps=cfg.nsteps,
+         forcing_mode="compact", case_seconds=gen_seconds,
+         wall_seconds=wall, ldasout_files=len(files),
+         chunk_cap_steps=max(1, 2 ** 21 // n), **out,
+         kernel_ms_per_step=kernel_ms_large,
+         kernel_share=(kernel_ms_large / out["ms_per_step"]
+                       if kernel_ms_large else None),
+         note="kernel_ms_per_step: the column kernels alone at this n on "
+              "the uniform case (phase timing, ms_1m)")
+    return out
+
+
+def outside_the_bars(label, ref, got, steps, snapshot=()):
+    """{field: per-point ratio to ``steps`` times the step's bars} over
+    two dicts of numpy leaves; ``snapshot`` names the fields held to the
+    state bars, the rest to the flux bars."""
+    out = {}
+    for name, r in ref.items():
+        b = (STATE_BAR, STATE_CEILING) if name in snapshot else (
+            FLUX_BAR, FLUX_CEILING)
+        out[f"{label}{name}"] = point_ratios(r, got[name], *b, steps)
+    return out
+
+
+def free_run_summary(table):
+    """Points outside (ratio > 1) in a {field: per-point ratio} table:
+    the field with most, and the worst ratio and where."""
+    counts = {k: int((r > 1.0).sum()) for k, r in table.items()}
+    most = max(counts, key=counts.get)
+    worst = max(table, key=lambda k: float(table[k].max()))
+    return {"most_points_outside": counts[most],
+            "most_points_outside_at": most,
+            "fields_with_points_outside": sorted(k for k, c in counts.items()
+                                                 if c),
+            "worst_ratio": float(table[worst].max()), "worst_at": worst}
+
+
+def free_run_table(ref, other, steps_per_window, steps):
+    """{field: per-point ratio} of run ``other`` against run ``ref``, each
+    (final State, ldasout files): every ldasout field against
+    cases.run_ratio with the steps run so far, and the final State."""
+    snapshot = set(driver_io.OutputWriter.SNAPSHOT)
+    table = {}
+    for k, (rf, gf) in enumerate(zip(ref[1], other[1])):
+        if os.path.basename(rf) != os.path.basename(gf):
+            raise AssertionError(f"free run: {gf} against {rf}")
+        table.update(outside_the_bars(
+            os.path.basename(rf) + " ", driver_io.load_arrays(rf),
+            driver_io.load_arrays(gf), (k + 1) * steps_per_window, snapshot))
+    table.update(outside_the_bars(
+        "final State.", tree_to_numpy(ref[0]), tree_to_numpy(other[0]),
+        steps, set(State._fields)))
+    return table
+
+
+def point_step_ratios(ref, got):
+    """Per point (the leading axis), the worst |ref - got| over the
+    step's bars (those of fused_kernel_check) across every leaf of two
+    (State, Flux) pairs, on ``ref``'s device in float64; NaN in both
+    counts as equal, an int leaf that differs as inf.  Returns (the
+    worst ratio a point, {leaf: its ratio a point})."""
+    by_leaf = {}
+    for label, r_tree, g_tree, bar, (rtol, atol) in (
+            ("State.", ref[0], got[0], STATE_BAR, STATE_CEILING),
+            ("Flux.", ref[1], got[1], FLUX_BAR, FLUX_CEILING)):
+        for name, r, g in zip(r_tree._fields, r_tree, g_tree):
+            n = r.shape[0]
+            r, g = r.reshape(n, -1), g.to(r.device).reshape(n, -1)
+            if r.dtype == torch.int32:
+                ratio = (r != g).any(1).double() * math.inf
+                ratio = torch.nan_to_num(ratio, nan=0.0)
+            else:
+                r, g = r.double(), g.double()
+                mag = r.abs()
+                allowed = torch.minimum(bar * mag.clamp(min=1.0),
+                                        atol + rtol * mag)
+                ratio = (r - g).abs() / allowed
+                same = (r == g) | (r.isnan() & g.isnan())
+                ratio = torch.nan_to_num(torch.where(same, 0.0, ratio),
+                                         nan=math.inf).amax(1)
+            by_leaf[label + name] = ratio
+    return torch.stack(list(by_leaf.values())).amax(0), by_leaf
+
+
+@contextlib.contextmanager
+def canopy_exit(threshold):
+    """column_plain with the canopy loop's exit threshold at
+    ``threshold`` (physics/flux.py:DTV_EXIT) while the block runs; the
+    kernels keep theirs."""
+    saved = flux_physics.DTV_EXIT
+    flux_physics.DTV_EXIT = threshold
+    try:
+        yield
+    finally:
+        flux_physics.DTV_EXIT = saved
+
+
+def nudged(t, seed):
+    """``t`` with each element other than 0 moved by one ulp up, down or
+    not at all (a generator of ``seed``), on ``t``'s device."""
+    x = t.cpu().numpy()
+    s = np.random.default_rng(seed).integers(-1, 2, x.shape) * (x != 0)
+    y = np.where(s > 0, np.nextafter(x, np.float32(np.inf)),
+                 np.where(s < 0, np.nextafter(x, np.float32(-np.inf)), x))
+    return torch.from_numpy(y.astype(np.float32)).to(t.device)
+
+
+def judge_resynced(plain, forcing, state, ref, got, lutyp,
+                   draws=ONE_ULP_DRAWS, also=()):
+    """One step from the same State: ``ref`` = plain(forcing, state),
+    ``got`` the kernel's.  The points outside the step's bars, each
+    explained or not by column_plain with the canopy exit moved
+    (EXIT_VARIANTS) or with tv, tg and the Forcing moved by one ulp
+    (``draws``), or by one of the (State, Flux) pairs ``also``; the
+    unexplained ones counted, their worst ratio,
+    and the largest share of one land-use class (classes of 100 points
+    or more) they take."""
+    ratio, by_leaf = point_step_ratios(ref, got)
+    outside = torch.nonzero(ratio > 1.0).squeeze(1)
+    best = ratio[outside]
+    for other in also:
+        best = torch.minimum(best, point_step_ratios(other, got)[0][outside])
+    variants = [(e, None) for e in EXIT_VARIANTS] + [
+        (0.0, SEED + d) for d in range(draws)]
+    for e, seed in variants:
+        if not bool((best > 1.0).any()):
+            break
+        start, drive = state, forcing
+        if seed is not None:
+            start = state._replace(tv=nudged(state.tv, seed),
+                                   tg=nudged(state.tg, seed + 1))
+            drive = Forcing(*[nudged(x, seed + 2 + k)
+                              for k, x in enumerate(forcing)])
+        with canopy_exit(flux_physics.DTV_EXIT * (1.0 + e)):
+            alt = plain(drive, start)
+        best = torch.minimum(best, point_step_ratios(alt, got)[0][outside])
+    unexplained = outside[best > 1.0].cpu().numpy()
+    worst_leaf = {}
+    for name, r in by_leaf.items():
+        for p in np.flatnonzero(r.cpu().numpy() > 1.0):
+            worst_leaf[p] = max(worst_leaf.get(p, (0.0, "")), (float(r[p]),
+                                                                name))
+    class_share, class_at = 0.0, None
+    for cls in np.unique(lutyp):
+        members = int((lutyp == cls).sum())
+        if members >= 100:
+            frac = float((lutyp[unexplained] == cls).sum()) / members
+            if frac > class_share:
+                class_share, class_at = frac, int(cls)
+    leaves = [worst_leaf[p][1] for p in outside.cpu().numpy()]
+    worst_u = max(unexplained, key=lambda p: worst_leaf[p][0], default=None)
+    return {"points_outside": int(outside.numel()),
+            "explained": int(outside.numel() - len(unexplained)),
+            "unexplained": len(unexplained),
+            "worst_ratio": float(ratio.max()),
+            "most_outside_in": max(set(leaves), key=leaves.count,
+                                   default=None),
+            "worst_unexplained_ratio": (worst_leaf[worst_u][0]
+                                        if worst_u is not None else 0.0),
+            "worst_unexplained_at": (
+                f"{worst_leaf[worst_u][1]}, point {int(worst_u)}, land use "
+                f"{int(lutyp[worst_u])}" if worst_u is not None else None),
+            "unexplained_land_use": sorted(set(lutyp[unexplained].tolist())),
+            "unexplained_class_share": class_share,
+            "unexplained_class_share_at": class_at}
+
+
+def check_resynced(label, report, n):
+    """The limits on what stays unexplained, in every step."""
+    for r in report:
+        if r["unexplained"] > UNEXPLAINED_SHARE * n:
+            raise AssertionError(
+                f"{label}, step {r['step']}: {r['unexplained']} of {n} points"
+                " outside the step's bars and not explained (at most "
+                f"{UNEXPLAINED_SHARE * n:.0f}); worst at "
+                f"{r['worst_unexplained_at']}")
+        if r["worst_unexplained_ratio"] > UNEXPLAINED_RATIO:
+            raise AssertionError(
+                f"{label}, step {r['step']}: a point outside the bars not "
+                f"explained, at "
+                f"{r['worst_unexplained_ratio']:.3g} times them (at most "
+                f"{UNEXPLAINED_RATIO}): {r['worst_unexplained_at']}")
+        if r["unexplained_class_share"] > UNEXPLAINED_CLASS_SHARE:
+            raise AssertionError(
+                f"{label}, step {r['step']}: "
+                f"{r['unexplained_class_share']:.3f} of land use "
+                f"{r['unexplained_class_share_at']} outside the bars and not"
+                " explained")
+
+
+def resynced_summary(report):
+    worst = max(report, key=lambda r: r["worst_unexplained_ratio"])
+    return {"steps": len(report),
+            "points_outside_by_step": [r["points_outside"] for r in report],
+            "unexplained_by_step": [r["unexplained"] for r in report],
+            "worst_ratio": max(r["worst_ratio"] for r in report),
+            "worst_unexplained_ratio": worst["worst_unexplained_ratio"],
+            "worst_unexplained_at": worst["worst_unexplained_at"],
+            "worst_unexplained_step": worst["step"],
+            "unexplained_class_share": max(r["unexplained_class_share"]
+                                           for r in report),
+            "most_outside_in": sorted({r["most_outside_in"] for r in report
+                                       if r["most_outside_in"]})}
+
+
+def phase_offline_kernel_agreement(params, device, case, n):
+    """column_cuda against column_plain, both on the card, on the
+    offline case's domain: RESYNC_STEPS steps from the init State and
+    as many from the last restart the run wrote (2 days on), each step
+    taken by both from column_plain's State of the step before, held
+    to fused_kernel_check's bars point by point.  The points outside
+    must be explained (EXIT_VARIANTS, ONE_ULP_DRAWS), all but a few of
+    small excess (UNEXPLAINED_*)."""
+    nml_cfg = Config.from_namelist(os.path.join(case, "case.nml"))
+    static = driver_io.load_domain(nml_cfg.constfile, device)
+    static_host = driver_io.static_to_host(static)
+    lutyp = static_host.lutyp
+    fused = make_fused_step(params, nml_cfg.options, nml_cfg.dt, static,
+                            device=device)
+    dt = torch.tensor(nml_cfg.dt, dtype=torch.float32, device=device)
+
+    def plain(forcing, state):
+        with torch.no_grad():
+            return column_plain(fused.gathered, nml_cfg.options, static,
+                                forcing, state, dt)
+
+    last = sorted(f for f in os.listdir(nml_cfg.resdir)
+                  if f.startswith("restart_"))[-1]
+    restart, when = driver_io.load_restart(os.path.join(nml_cfg.resdir,
+                                                        last), device)
+    starts = ((nml_cfg.begdatetime,
+               driver_io.load_init(nml_cfg.initfile, n, device)),
+              (when, restart))
+    report = []
+    t0 = time.perf_counter()
+    for begin, state in starts:
+        state = State(*[x.contiguous() for x in state])
+        for k in range(RESYNC_STEPS):
+            at = begin + k * nml_cfg.timestep
+            forcing = file_forcing(nml_cfg, static_host, at, device)
+            ref = plain(forcing, state)
+            got = fused(None, forcing, state)
+            report.append({"step": str(at), **judge_resynced(
+                plain, forcing, state, ref, got, lutyp)})
+            state = ref[0]
+    check_resynced("column_cuda against column_plain on the card", report, n)
+    emit("offline_kernel_agreement", n=n, **resynced_summary(report),
+         exit_variants=EXIT_VARIANTS, one_ulp_draws=ONE_ULP_DRAWS,
+         unexplained_allowed={"share": UNEXPLAINED_SHARE,
+                              "ratio": UNEXPLAINED_RATIO,
+                              "class_share": UNEXPLAINED_CLASS_SHARE},
+         state_bar=STATE_BAR, flux_bar=FLUX_BAR, seconds=time.perf_counter()
+         - t0, by_step=report,
+         note="column_cuda and column_plain on the card from column_plain's "
+              "State; a point is outside when any leaf is beyond "
+              "fused_kernel_check's bars, explained when column_plain "
+              "comes within them with the canopy exit threshold moved by "
+              "one of exit_variants or with tv, tg and the Forcing moved "
+              "by one ulp")
+
+
+def moved(tree, device):
+    """A container (or a pair of them) with every leaf on ``device``."""
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        return tuple(moved(t, device) for t in tree)
+    return type(tree)(*[x.to(device) for x in tree])
+
+
+def retyped(tree, dtype=torch.float64):
+    """A container with every float leaf as ``dtype``."""
+    return type(tree)(*[x.to(dtype) if x.is_floating_point() else x
+                        for x in tree])
+
+
+def phase_offline_cpu_agreement(device, n, hours, work, out_hours=3):
+    """The same case through run_offline on the card and on the CPU
+    (column_plain): every ldasout field and every leaf of the final
+    State within cases.run_ratio at all but FREE_RUN_OUTLIERS of the
+    points and within FREE_RUN_RATIO of it at every point.  Beside it
+    the CPU run against itself started from a State whose tg moved by
+    one ulp (the worst of SELF_SPREAD_DRAWS): how far the model parts
+    from itself.  Then each step of the
+    CPU run's trajectory taken again on the card from the CPU's State
+    (resynced), held as in offline_kernel_agreement (the variants run on
+    the CPU), a point also explained by the same step in float64 on the
+    CPU or by column_plain on the card; beside it, how far the CPU's
+    float32 step parts from its float64 one, and the kernel from
+    column_plain on the card."""
+    case = write_case(n, 1, work, out_hours)
+    got = driver_run.run_offline(offline_cfg(case, "card", hours),
+                                 verbose=False, device=device)
+    ref = driver_run.run_offline(offline_cfg(case, "cpu", hours),
+                                 verbose=False, device="cpu")
+    cfg = offline_cfg(case, "x", hours)
+    init = driver_io.load_init(cfg.initfile, n, "cpu")
+    itself = [driver_run.run_offline(
+        offline_cfg(case, f"cpu_nudged_{d}", hours), verbose=False,
+        device="cpu", state=init._replace(tg=nudged(init.tg, SEED + d)))
+        for d in range(SELF_SPREAD_DRAWS)]
+    if len(got[1]) != hours // out_hours:
+        raise AssertionError(f"offline card vs CPU: {len(got[1])} files")
+    tables = [free_run_summary(free_run_table(ref, other, 4 * out_hours,
+                                              cfg.nsteps))
+              for other in [got] + itself]
+    free_report = tables[0]
+    self_report = max(tables[1:], key=lambda t: t["worst_ratio"])
+
+    # resynced: one step at a time from the CPU run's State
+    static = driver_io.load_domain(cfg.constfile, "cpu")
+    static_host = driver_io.static_to_host(static)
+    card_static = moved(static, device)
+    card = make_fused_step(load_params(cfg.veg_scheme, cfg.soil_scheme,
+                                       device=device), cfg.options, cfg.dt,
+                           card_static, device=device)
+    cpu_params = load_params(cfg.veg_scheme, cfg.soil_scheme, device="cpu")
+    cpu = make_fused_step(cpu_params, cfg.options, cfg.dt, static,
+                          device="cpu")
+
+    def plain(forcing, state):
+        return cpu(None, forcing, state)
+
+    gathered64 = gather_params(copy.deepcopy(cpu_params).double(),
+                               static.lutyp, static.sltyp, static.isc,
+                               static.slptyp)
+    dt64 = torch.tensor(cfg.dt, dtype=torch.float64)
+
+    def plain64(forcing, state):
+        with torch.no_grad():
+            out = column_plain(gathered64, cfg.options, retyped(static),
+                               retyped(forcing), retyped(state), dt64)
+        return tuple(retyped(t, torch.float32) for t in out)
+
+    dt_card = torch.tensor(cfg.dt, dtype=torch.float32, device=device)
+
+    def plain_on_the_card(forcing, state):
+        with torch.no_grad():
+            out = column_plain(card.gathered, cfg.options, card_static,
+                               moved(forcing, device), moved(state, device),
+                               dt_card)
+        return tuple(moved(t, "cpu") for t in out)
+
+    state = init
+    report, yardstick, same_card = [], [], []
+    for k in range(cfg.nsteps):
+        at = cfg.begdatetime + k * cfg.timestep
+        forcing = file_forcing(cfg, static_host, at, "cpu")
+        ref_step = plain(forcing, state)
+        got_step = moved(card(None, moved(forcing, device),
+                              moved(state, device)), "cpu")
+        wide = plain64(forcing, state)
+        on_card = plain_on_the_card(forcing, state)
+        for table, a, b in ((yardstick, ref_step, wide),
+                            (same_card, on_card, got_step)):
+            r = point_step_ratios(a, b)[0]
+            table.append((int((r > 1.0).sum()), float(r.max())))
+        report.append({"step": k, **judge_resynced(
+            plain, forcing, state, ref_step, got_step, static_host.lutyp,
+            also=(wide, on_card))})
+        state = ref_step[0]
+    yardstick = {"points_outside_by_step": [c for c, _ in yardstick],
+                 "worst_ratio": max(w for _, w in yardstick)}
+    same_card = {"points_outside_by_step": [c for c, _ in same_card],
+                 "worst_ratio": max(w for _, w in same_card)}
+
+    limit = int(FREE_RUN_OUTLIERS * n)
+    if free_report["most_points_outside"] > limit:
+        raise AssertionError(
+            "offline card vs CPU, free run: "
+            f"{free_report['most_points_outside']} points of {n} outside the "
+            "bars in "
+            f"{free_report['most_points_outside_at']} (at most {limit})")
+    if free_report["worst_ratio"] > FREE_RUN_RATIO:
+        raise AssertionError(
+            f"offline card vs CPU, free run: {free_report['worst_at']} at "
+            f"{free_report['worst_ratio']:.3g} times cases.run_ratio (at most "
+            f"{FREE_RUN_RATIO})")
+    check_resynced("offline card vs CPU, resynced", report, n)
+    emit("offline_cpu_agreement", n=n, hours=hours, steps=cfg.nsteps,
+         ldasout_files=len(got[1]),
+         free_run_allowed={"points": limit, "ratio": FREE_RUN_RATIO},
+         free_run=free_report, cpu_against_itself_tg_one_ulp=self_report,
+         resynced=resynced_summary(report),
+         float32_vs_float64_on_the_cpu=yardstick,
+         kernel_vs_plain_on_the_card=same_card,
+         unexplained_allowed={"share": UNEXPLAINED_SHARE,
+                              "ratio": UNEXPLAINED_RATIO,
+                              "class_share": UNEXPLAINED_CLASS_SHARE},
+         note="free_run: ldasout fields and the final State, "
+              "cases.point_ratios with the steps run so far; "
+              "cpu_against_itself_tg_one_ulp: the same for the CPU run from "
+              "the initial State with tg moved by one ulp; resynced: each step"
+              " from the CPU run's State on the card and on the CPU, "
+              "the step's bars per point, explained as in "
+              "offline_kernel_agreement (variants on the CPU) or by the "
+              "float64 step on the CPU or column_plain on the card; "
+              "float32_vs_float64_on_the_cpu and kernel_vs_plain_on_the_card:"
+              " the points outside the bars between those two pairs")
+
+
 def wall_ms_in_turns(steps, states, reps, warmup):
     """Host-clock milliseconds of one step of each of ``steps`` (a list
     of callables state -> state), taken in turns so that both see the
@@ -1549,6 +2387,100 @@ def phase_profile(step, device, n, out_dir):
                "ms": e.device_time_total / 1e3} for e in top])
 
 
+def host_column_library(build_dir):
+    """``csrc/column_host.cpp`` (the kernels' headers for the host) built
+    with g++ as tests/test_torch_column_host.py builds it, and bound."""
+    lib_path = os.path.join(build_dir, "libcolumn_host.so")
+    subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-o", lib_path,
+                    os.path.join(_build.CSRC_DIR, "column_host.cpp")],
+                   check=True)
+    lib = ctypes.CDLL(lib_path)
+    args_type = column._args_type()
+    column.check_abi(lib, args_type)
+    lib.noahmp_column_host.argtypes = [ctypes.POINTER(args_type)]
+    lib.noahmp_column_host.restype = ctypes.c_int
+    return lib
+
+
+def cpu_conditioning(n=N_OFFLINE_CPU, steps=12, free_draws=3):
+    """Where the figures behind EXIT_VARIANTS, ONE_ULP_DRAWS,
+    UNEXPLAINED_* and FREE_RUN_* come from, on the CPU, no card: the
+    generated CONUS case at ``n`` points.  column_plain against itself
+    from a State whose tv moved by one ulp (the first step); the host
+    build of the kernels against column_plain over ``steps`` steps along
+    column_plain's trajectory, the points outside explained or not by
+    the exit variants alone and with the one-ulp draws; the offline run
+    against itself from an initial tg moved by one ulp (``free_draws``
+    draws, OFFLINE_CPU_HOURS).  One JSON line a part; never ok."""
+    work = tempfile.mkdtemp(prefix="noahmp_conditioning_")
+    try:
+        case = write_case(n, 1, work)
+        cfg = offline_cfg(case, "x", OFFLINE_CPU_HOURS)
+        static = driver_io.load_domain(cfg.constfile, "cpu")
+        static_host = driver_io.static_to_host(static)
+        fused = make_fused_step(load_params(cfg.veg_scheme, cfg.soil_scheme,
+                                            device="cpu"), cfg.options,
+                                cfg.dt, static, device="cpu")
+
+        def plain(forcing, state):
+            return fused(None, forcing, state)
+
+        lib = host_column_library(work)
+        plan = column.ColumnPlan(fused.gathered, cfg.options, cfg.dt, static,
+                                 need_cuda=False)
+        state = driver_io.load_init(cfg.initfile, n, "cpu")
+        forcing = file_forcing(cfg, static_host, cfg.begdatetime, "cpu")
+        ratio, by_leaf = point_step_ratios(
+            plain(forcing, state),
+            plain(forcing, state._replace(tv=nudged(state.tv, SEED))))
+        counts = {k: int((r > 1.0).sum()) for k, r in by_leaf.items()}
+        emit("conditioning_one_ulp_tv", n=n,
+             points_outside=int((ratio > 1.0).sum()),
+             worst_ratio=float(ratio.max()),
+             most_outside_in=sorted(counts, key=counts.get)[-4:],
+             note="column_plain against itself, State.tv moved by one ulp, "
+                  "the step's bars per point")
+        by_exit, full = [], []
+        for k in range(steps):
+            forcing = file_forcing(cfg, static_host,
+                                   cfg.begdatetime + k * cfg.timestep, "cpu")
+            ref = plain(forcing, state)
+            args = plan.point_to(forcing, state)
+            got = plan.outputs()
+            if lib.noahmp_column_host(ctypes.byref(args)) != 0:
+                raise RuntimeError("the host build failed")
+            lutyp = static_host.lutyp
+            by_exit.append({"step": k, **judge_resynced(
+                plain, forcing, state, ref, got, lutyp, draws=0)})
+            full.append({"step": k, **judge_resynced(
+                plain, forcing, state, ref, got, lutyp)})
+            state = ref[0]
+        emit("conditioning_host_build", n=n, steps=steps,
+             exit_variants_alone=resynced_summary(by_exit),
+             with_one_ulp_draws=resynced_summary(full),
+             note="the host build of the kernels (csrc/column_host.cpp) "
+                  "against column_plain, each step from column_plain's State")
+        ref = driver_run.run_offline(cfg, verbose=False, device="cpu")
+        init = driver_io.load_init(cfg.initfile, n, "cpu")
+        draws = []
+        for d in range(free_draws):
+            other = driver_run.run_offline(
+                offline_cfg(case, f"nudged_{d}", OFFLINE_CPU_HOURS),
+                verbose=False, device="cpu",
+                state=init._replace(tg=nudged(init.tg, SEED + d)))
+            draws.append(free_run_summary(free_run_table(ref, other, 12,
+                                                         cfg.nsteps)))
+        emit("conditioning_free_run", n=n, hours=OFFLINE_CPU_HOURS,
+             draws=draws,
+             note="the offline run against itself from an initial tg moved "
+                  "by one ulp, cases.point_ratios with the steps run so far")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("cpu conditioning finished; this is not a result", file=sys.stderr)
+    return 3
+
+
 def cpu_rehearsal():
     """Phases that need no card, tiny, on the CPU.  Never ok."""
     device = torch.device("cpu")
@@ -1567,6 +2499,17 @@ def cpu_rehearsal():
     phase_carbon(params, params, device, 16, 2, n_cpu=8)
     phase_chunk(params, device, 16, 6, 2, 3)
     phase_strict(params, device, 16, 6, 3, 3)
+    work = tempfile.mkdtemp(prefix="noahmp_offline_")
+    try:
+        case, _launches, _out = phase_offline_case(params, device, 64, 1, work,
+                                                   out_hours=1, hours=2)
+        phase_offline_forcing(device, case, 64, 2)
+        phase_offline_kernel_agreement(params, device, case, 64)
+        shutil.rmtree(case)
+        phase_offline_large(device, 64, 2, work, None, out_hours=1)
+        phase_offline_cpu_agreement(device, 64, 2, work, out_hours=1)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     emit("rehearsal_carbon_operations", **carbon_operations(params))
     static, forcing, state = to_device(uniform_case(N_OPS), device)
     fused = make_fused_step(params, Options(), DT, static, device="cpu")
@@ -1579,11 +2522,14 @@ def cpu_rehearsal():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true")
+    ap.add_argument("--cpu-conditioning", action="store_true")
     ap.add_argument("--profile", metavar="DIR", default=None)
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     if args.cpu_rehearsal:
         return cpu_rehearsal()
+    if args.cpu_conditioning:
+        return cpu_conditioning()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this "
               "script needs one NVIDIA GPU", file=sys.stderr)
@@ -1623,6 +2569,25 @@ def main():
     timing = phase_timing(params, params_cpu, step, device, N_POINTS,
                           weights, clock_mhz)
     chunk_timing = phase_chunk_timing(params, device, N_POINTS, T_CHUNK)
+
+    # the offline driver: the generated CONUS case through the CLI, a
+    # resume, exact and compact forcing, the kernels against their plain
+    # version on that domain, 1M points, card against CPU
+    work = tempfile.mkdtemp(prefix="noahmp_offline_")
+    try:
+        case, offline_launches, offline = phase_offline_case(
+            params, device, N_OFFLINE, OFFLINE_DAYS, work)
+        offline_forcing = phase_offline_forcing(device, case, N_OFFLINE,
+                                                OFFLINE_FORCING_HOURS)
+        phase_offline_kernel_agreement(params, device, case, N_OFFLINE)
+        shutil.rmtree(case)
+        offline_large = phase_offline_large(device, N_LARGE,
+                                            OFFLINE_LARGE_HOURS, work,
+                                            timing["ms_large"])
+        phase_offline_cpu_agreement(device, N_OFFLINE_CPU, OFFLINE_CPU_HOURS,
+                                    work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if args.profile:
         phase_profile(step, device, N_POINTS, args.profile)
     if args.sweep:
@@ -1640,6 +2605,7 @@ def main():
         "shape": [N_POINTS], "launches": column_launches,
         "launches_carbon_path": carbon_launches["column"],
         "launches_chunk_path": chunk_launches["column"],
+        "launches_offline_path": offline_launches["column"],
         "launches_per_step": column.device_launches(N_POINTS),
         "max_abs_err": worst[0],
         "max_abs_err_at": f"{worst[1]}: {worst[2]}",
@@ -1658,6 +2624,13 @@ def main():
         "chunk_no_accumulators_ms_per_step":
             chunk_timing["chunk_no_accumulators"]["ms_per_step"],
         "strict_ms_per_step": chunk_timing["strict_chunk"]["ms_per_step"],
+        "offline_ms_per_step": offline["ms_per_step"],
+        "offline_point_steps_per_s": offline["point_steps_per_s"],
+        "offline_kernel_ms_per_step": offline["kernel_ms_per_step"],
+        "offline_exact_ms_per_step": offline_forcing["exact"]["ms_per_step"],
+        "offline_compact_ms_per_step":
+            offline_forcing["compact"]["ms_per_step"],
+        "offline_1m_ms_per_step": offline_large["ms_per_step"],
         "step_wall_ms": timing["wall_ms"],
         "host_share_ms": timing["wall_ms"] - timing["ms"],
         "host_enqueue_ms": timing["host_enqueue_ms"],
@@ -1688,6 +2661,12 @@ def main():
                   f"one chunk of {T_CHUNK} steps with the {len(CHUNK_ACC)} "
                   "accumulators of an offline run, median of 5, in turns with "
                   "the free-running steps (phase chunk_timing); "
+                  "offline_*: the offline driver's loop on the host clock "
+                  f"(phases offline_case at n = {N_OFFLINE}, exact forcing; "
+                  "offline_forcing, exact and compact in turns; "
+                  f"offline_large at n = {N_LARGE}, compact), "
+                  "offline_kernel_ms_per_step the kernels alone on that "
+                  "domain (CUDA events); "
                   "stages[].ms: one launch alone, back to back with itself; "
                   "plain_ms: summed device time of the eager step's kernels "
                   "(torch.profiler); plain_wall_ms and step_wall_ms: host "
@@ -1701,8 +2680,11 @@ def main():
                   "column_plain",
     })
     for entry in entries:
-        for key in ("launches", "launches_carbon_path",
-                    "launches_chunk_path"):
+        keys = ["launches", "launches_carbon_path", "launches_chunk_path"]
+        if entry["name"] == "column_cuda":
+            # the offline path runs the fused step only: no Thomas launch
+            keys.append("launches_offline_path")
+        for key in keys:
             if entry[key] <= 0:
                 raise AssertionError(f"{entry['name']}: {key} = "
                                      f"{entry[key]}, a path did not launch "

@@ -10,7 +10,15 @@ can be handed to this package and to any other implementation:
   barren, ice, cropland, shrub) under one of four forcing ``REGIMES``
   that reach the snow, frozen-soil and stomatal-stress branches; tiled
   to any n.
+
+And one file-driven case for the offline driver: ``conus_case`` writes
+a CONUS-flavoured domain, init and hourly forcing files and a namelist
+(the port's copy of ``examples/make_case.py:conus``, the same arrays
+from the same seed).
 """
+
+import datetime
+import os
 
 import numpy as np
 
@@ -160,6 +168,43 @@ def bar_ratio(ref, got, bar, ceiling):
     return float("inf") if np.isnan(ratio).any() else float(ratio.max())
 
 
+def run_ratio(ref, got, bar, ceiling, steps):
+    """``bar_ratio`` for a field after ``steps`` steps of a run (an
+    offline run's ldasout window, or its State): each step may add one
+    step's bar of difference, so the field is held to ``steps`` times
+    the step's bar; <= 1 passes.  Two implementations that differ in
+    the last bit of a step drift apart where a point sits near one of
+    the model's thresholds (canopy water at capacity, a soil layer at
+    freezing): between the port and the JAX package on the CPU, 32
+    points of the generated CONUS case reach 2.6 times the flux bar in
+    ``ssoil`` after 8 steps and 3.6 times the state bar in ``canliq``
+    after 16 (tests/test_torch_offline.py), then fall back under 1."""
+    return bar_ratio(ref, got, bar, ceiling) / max(1, steps)
+
+
+def point_ratios(ref, got, bar, ceiling, steps=1):
+    """Per land point (the leading axis), the worst element of
+    ``run_ratio``: |ref - got| over ``steps`` times the step's bars.
+    Equal values (NaN in both included) give 0, NaN in one only inf.  A
+    run of two implementations differs beyond the bars at a few points
+    near a threshold (``run_ratio``); this says at which, and by how
+    much, so a caller can count them."""
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    if ref.shape != got.shape:
+        raise ValueError(f"shapes {ref.shape} and {got.shape}")
+    rtol, atol = ceiling
+    mag = np.abs(ref)
+    allowed = np.minimum(bar * np.maximum(1.0, mag), atol + rtol * mag)
+    with np.errstate(invalid="ignore"):
+        ratio = np.abs(ref - got) / (allowed * max(1, steps))
+    ratio = np.where((ref == got) | (np.isnan(ref) & np.isnan(got)), 0.0,
+                     ratio)
+    ratio = np.where(np.isnan(ratio), np.inf, ratio)
+    return ratio.reshape(ratio.shape[0], -1).max(axis=1) if ratio.ndim \
+        else ratio
+
+
 # The carbon fluxes are of order 1e-6 g m-2 s-1 and the pools change by
 # some 1e-3 g m-2 a step beside values of hundreds, so the step's bars
 # above (which scale with max(1, |ref|)) are blind to them.  They are
@@ -207,3 +252,157 @@ def carbon_ratios(old_state, ref, got):
         out[name] = carbon_ratio(ref[0][name] - old, got[0][name] - old,
                                  floor=float(np.spacing(np.float32(top))))
     return out
+
+
+# USGS special land-use classes (params/data/VEGPARMMP.TBL header)
+ISURBAN, ISWATER, ISBARREN, ISICE = 1, 16, 19, 24
+# SOILPARMMP STAS row 14 is 'WATER' (all-zero hydraulics): only valid
+# for water-body points
+SOIL_WATER = 14
+
+
+def conus_domain(n, rng):
+    """Heterogeneous per-point types with CONUS-flavored fractions:
+    ~87% vegetated/bare land over every ordinary USGS class, 3% urban,
+    3% barren, 2% glacier ice, 5% inland water (ist=2)."""
+    lat_deg = rng.uniform(25.0, 49.0, n).astype(np.float32)
+    lon_deg = rng.uniform(-124.0, -67.0, n).astype(np.float32)
+
+    ordinary = [c for c in range(1, 28)
+                if c not in (ISURBAN, ISWATER, ISBARREN, ISICE)]
+    u = rng.random(n)
+    lutyp = rng.choice(ordinary, n).astype(np.int32)
+    lutyp = np.where(u < 0.03, ISURBAN, lutyp)
+    lutyp = np.where((u >= 0.03) & (u < 0.06), ISBARREN, lutyp)
+    lutyp = np.where((u >= 0.06) & (u < 0.08), ISICE, lutyp)
+    water = (u >= 0.08) & (u < 0.13)
+    lutyp = np.where(water, ISWATER, lutyp).astype(np.int32)
+
+    soil_land = [s for s in range(1, 20) if s != SOIL_WATER]
+    sltyp = rng.choice(soil_land, n).astype(np.int32)
+    sltyp = np.where(water, SOIL_WATER, sltyp).astype(np.int32)
+
+    ist = np.where(water, 2, 1).astype(np.int32)
+    ice = np.where(lutyp == ISICE, 1, 0).astype(np.int32)
+
+    return {
+        "lat": np.deg2rad(lat_deg).astype(np.float32),
+        "lon": np.deg2rad(lon_deg).astype(np.float32),
+        "lutyp": lutyp, "sltyp": sltyp,
+        "slptyp": rng.integers(1, 10, n).astype(np.int32),
+        "isc": rng.integers(1, 10, n).astype(np.int32),
+        "ist": ist, "ice": ice,
+        "shdfac": rng.uniform(0.1, 0.95, n).astype(np.float32),
+        "shdmax": rng.uniform(0.5, 0.98, n).astype(np.float32),
+        "tbot": (287.0 - 0.4 * (lat_deg - 25.0)).astype(np.float32),
+        "zlvl": np.full(n, 10.0, np.float32),
+        "zsoil": np.array([-0.1, -0.4, -1.0, -2.0], np.float32),
+    }
+
+
+def conus_case(n, seed=0, days=1, outdir="conus", start=None, fmt="nc"):
+    """Write a file-driven offline case under ``outdir``: ``domain`` and
+    ``init`` files, hourly ``ldasin/`` forcing for ``days`` days (plus
+    two hours for the interpolation), empty ``ldasout/`` and
+    ``restart/``, and ``case.nml`` (15-minute steps, 3-hourly output,
+    daily restarts) naming them by absolute path.  ``fmt``: "nc"
+    (classic NetCDF) or "npz".  Returns ``outdir``.
+
+    Run it with ``python -m noahmp_tpu_torch.driver.cli
+    <outdir>/case.nml [--device cpu]``."""
+    from .driver.io import save_arrays
+
+    rng = np.random.default_rng(seed)
+    indir = os.path.join(outdir, "ldasin")
+    os.makedirs(indir, exist_ok=True)
+    for sub in ("ldasout", "restart"):
+        os.makedirs(os.path.join(outdir, sub), exist_ok=True)
+
+    dom = conus_domain(n, rng)
+    ext = ".nc" if fmt == "nc" else ".npz"
+    save_arrays(os.path.join(outdir, "domain" + ext), dom)
+
+    lat_deg = np.rad2deg(dom["lat"])
+    tg0 = (290.0 - 0.45 * (lat_deg - 25.0)
+           + rng.normal(0.0, 1.0, n)).astype(np.float32)
+    # one draw for both: swc must equal smc at an ice-free cold start
+    # (swc > smc would mean negative soil ice; swc < smc implies ice
+    # in unfrozen soil — either breaks the water budget from step 0)
+    sm0 = np.broadcast_to(
+        rng.uniform(0.15, 0.35, (n, 1)).astype(np.float32), (n, 4))
+    save_arrays(os.path.join(outdir, "init" + ext), {
+        "tg": tg0, "tv": tg0,
+        "swc": sm0,
+        "smc": sm0,
+        "sneqv": np.where(lat_deg > 44.0, 20.0, 0.0).astype(np.float32),
+        "snowh": np.where(lat_deg > 44.0, 0.1, 0.0).astype(np.float32),
+    })
+
+    # hourly forcing with latitudinal + diurnal structure and a moving
+    # precipitation band; one extra hour for interpolation
+    start = start or datetime.datetime(2000, 7, 1)
+    lon_deg = np.rad2deg(dom["lon"])
+    for h in range(days * 24 + 2):
+        when = start + datetime.timedelta(hours=h)
+        tod = (h + lon_deg / 15.0) % 24.0   # local solar time-ish
+        day = np.maximum(0.0, np.sin((tod - 6.0) / 12.0 * np.pi))
+        tair = (302.0 - 0.5 * (lat_deg - 25.0) + 9.0 * (day - 0.3)
+                + rng.normal(0.0, 0.3, n))
+        band = np.abs(lon_deg + 100.0 - 0.8 * h) < 4.0
+        prcp = np.where(band, 2.0e-3 * rng.random(n), 0.0)
+        save_arrays(os.path.join(indir, when.strftime("%Y%m%d%H") + ext), {
+            "sfctmp": tair.astype(np.float32),
+            "sfcprs": np.full(n, 95000.0, np.float32),
+            "q2": (0.006 + 0.004 * day).astype(np.float32),
+            "uu": rng.uniform(0.5, 8.0, n).astype(np.float32),
+            "vv": rng.uniform(-3.0, 3.0, n).astype(np.float32),
+            "soldn": (950.0 * day).astype(np.float32),
+            "lwdn": (300.0 + 60.0 * day).astype(np.float32),
+            "prcp": prcp.astype(np.float32),
+            "lon": dom["lon"],
+        })
+
+    end = start + datetime.timedelta(days=days)
+    rel = os.path.abspath(outdir)  # runnable from any cwd
+    with open(os.path.join(outdir, "case.nml"), "w") as f:
+        f.write(f"""&NOAHMP_OFFLINE
+  ! generated by noahmp_tpu_torch.cases.conus_case (n={n}, seed={seed})
+  static_parameter_file = '{rel}/domain{ext}'
+  initialization_file = '{rel}/init{ext}'
+  restart_file = 'restart.npz'
+
+  input_directory = '{rel}/ldasin'
+  input_frequency = '1 hour'
+  output_directory = '{rel}/ldasout'
+  output_frequency = '3 hour'
+  restart_directory = '{rel}/restart'
+  restart_frequency = '1 day'
+
+  start_year = {start.year}
+  start_month = {start.month}
+  start_day = {start.day}
+  start_hour = {start.hour}
+  start_minute = 0
+  start_second = 0
+
+  end_year= {end.year}
+  end_month = {end.month}
+  end_day = {end.day}
+  end_hour = {end.hour}
+  end_minute = 0
+  end_second = 0
+
+  interval_seconds = 900
+
+  opt_veg = 1
+  opt_run = 1
+  opt_btr = 1
+  opt_rad = 1
+  opt_tub = 1
+  opt_can = 1
+  opt_inf = 1
+  opt_tbot = 1
+  opt_snf = 1
+/
+""")
+    return outdir

@@ -21,6 +21,7 @@ from . import sfc
 NITERC = 20   # canopy Newton iterations (func:2675)
 NITERG = 5    # ground Newton iterations under canopy (func:2677)
 NITERB = 5    # bare-ground Newton iterations (func:3115)
+DTV_EXIT = 0.01  # K: the canopy loop exits at |dTV| <= this from trip 5
 
 # Chen97 (opt_sfc=2) carry correction.  The reference divides the
 # sfcdif2 conductances AKMS/AKHS by the wind speed after every call
@@ -255,7 +256,7 @@ def vege_flux(veg, gen, lutyp, opts, dt, sav, sag, lwdn, ur, uu, vv,
         done_before = c.done
         done = c.done | c.liter
         if it + 1 >= 5:
-            liter = c.liter | ((torch.abs(dtv) <= 0.01) & ~c.liter)
+            liter = c.liter | ((torch.abs(dtv) <= DTV_EXIT) & ~c.liter)
         else:
             liter = c.liter
 

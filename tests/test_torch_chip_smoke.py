@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from noahmp_tpu_torch import Options, load_params
+from noahmp_tpu_torch import Options, load_params, make_fused_step
 from noahmp_tpu_torch.cases import hetero_case, to_device, uniform_case
 from noahmp_tpu_torch.convert import tree_to_numpy
 from noahmp_tpu_torch.kernels import column
@@ -130,3 +130,118 @@ def test_default_options_read_only_the_parameters_the_bound_counts(smoke,
                         for k, v in tree_to_numpy(tree).items()})
     for name, want in results[0].items():
         np.testing.assert_array_equal(results[1][name], want, err_msg=name)
+
+
+def test_point_ratios_count_points_beyond_the_bars():
+    from noahmp_tpu_torch.cases import (STATE_BAR, STATE_CEILING,
+                                        bar_ratio, point_ratios, run_ratio)
+    ref = np.array([[280.0, 1.0], [0.5, 0.5], [10.0, np.nan]], np.float32)
+    got = ref.copy()
+    got[0, 1] += np.float32(3e-4)          # 3 bars at 1.0
+    got[2, 1] = np.nan                     # NaN in both: equal
+    r = point_ratios(ref, got, STATE_BAR, STATE_CEILING)
+    assert r.shape == (3,) and r[1] == 0.0 and r[2] == 0.0
+    assert 2.9 < r[0] < 3.1
+    assert r.max() == pytest.approx(bar_ratio(ref, got, STATE_BAR,
+                                              STATE_CEILING))
+    assert point_ratios(ref, got, STATE_BAR, STATE_CEILING, 4)[0] == \
+        pytest.approx(run_ratio(ref, got, STATE_BAR, STATE_CEILING, 4))
+    got[1, 0] = np.nan                     # NaN in one only
+    assert np.isinf(point_ratios(ref, got, STATE_BAR, STATE_CEILING)[1])
+
+
+def test_outside_the_bars_names_fields_points_and_classes(smoke):
+    """Per-point ratios by field and the free run's summary: a point
+    outside is counted, its field named, its ratio kept.  In a step from
+    the same State, a leaf off at every point of one land-use class is
+    what a wrong branch gives: no variant of the plain step explains it,
+    the class is named and the limits refuse it."""
+    n = 40
+    ref = {"tg": np.full(n, 280.0, np.float32),
+           "fsh": np.zeros(n, np.float32)}
+    got = {"tg": ref["tg"].copy(), "fsh": ref["fsh"].copy()}
+    got["tg"][3] += 1.0                    # 36 state bars at 280 K
+    got["fsh"][1] = 0.004                  # within the flux bar
+    table = smoke.outside_the_bars("w ", ref, got, 4, {"tg"})
+    assert table["w tg"][3] == pytest.approx(1.0 / (0.028 * 4), rel=1e-3)
+    assert (table["w fsh"] <= 1.0).all()
+    summary = smoke.free_run_summary(table)
+    assert summary["most_points_outside"] == 1
+    assert summary["most_points_outside_at"] == "w tg"
+    assert summary["fields_with_points_outside"] == ["w tg"]
+    assert summary["worst_ratio"] == pytest.approx(table["w tg"][3])
+
+    static, forcing, state = to_device(uniform_case(128), "cpu")
+    fused = make_fused_step(load_params(device="cpu"), Options(), DT, static,
+                            device="cpu")
+
+    def plain(f, s):
+        return fused(None, f, s)
+
+    ref = plain(forcing, state)
+    lutyp = static.lutyp.numpy()
+    bad = ref[1]._replace(shg=ref[1].shg + 1.0)
+    report = smoke.judge_resynced(plain, forcing, state, ref,
+                                  (ref[0], bad), lutyp)
+    assert report["points_outside"] == report["unexplained"] == 128
+    assert report["worst_unexplained_at"].startswith("Flux.shg")
+    assert report["unexplained_class_share"] == 1.0
+    assert report["unexplained_class_share_at"] == int(lutyp[0])
+    with pytest.raises(AssertionError, match="not explained"):
+        smoke.check_resynced("t", [{"step": 0, **report}], 128)
+
+
+def test_a_canopy_exit_at_another_trip_is_explained(smoke, tmp_path):
+    """A step whose canopy loop leaves at other trips (the exit
+    threshold moved, as two implementations that differ in the last bit
+    do at some points of the generated CONUS case) differs from the
+    plain step beyond the bars; every such point is explained and the
+    limits pass.  The variants leave the threshold as it was."""
+    from noahmp_tpu_torch.driver import io as dio
+    from noahmp_tpu_torch.driver.config import Config
+    from noahmp_tpu_torch.physics import flux as flux_physics
+    case = smoke.write_case(256, 1, str(tmp_path))
+    cfg = Config.from_namelist(os.path.join(case, "case.nml"))
+    static = dio.load_domain(cfg.constfile, "cpu")
+    fused = make_fused_step(load_params(device="cpu"), cfg.options, cfg.dt,
+                            static, device="cpu")
+
+    def plain(f, s):
+        return fused(None, f, s)
+
+    state = dio.load_init(cfg.initfile, 256, "cpu")
+    forcing = smoke.file_forcing(cfg, dio.static_to_host(static),
+                                 cfg.begdatetime, "cpu")
+    ref = plain(forcing, state)
+    with smoke.canopy_exit(flux_physics.DTV_EXIT * 1.2):
+        got = plain(forcing, state)
+    assert flux_physics.DTV_EXIT == 0.01
+    report = smoke.judge_resynced(plain, forcing, state, ref, got,
+                                  static.lutyp.numpy())
+    assert report["points_outside"] > 0
+    assert report["explained"] == report["points_outside"]
+    smoke.check_resynced("t", [{"step": 0, **report}], 256)
+
+
+def test_host_split_times_the_offline_run_and_restores(smoke, tmp_path):
+    """The timers go around what run_offline calls and come off again;
+    the residual recorder sees every advisory check."""
+    from noahmp_tpu_torch import utils
+    from noahmp_tpu_torch.driver import io as dio, run as drun
+    saved = (dio._upload, dio.compact_chunk, dio.FileForcing.__call__,
+             dio.ChunkPrefetcher.get, dio.AsyncSink.submit,
+             drun.make_chunk_step, utils.check_budgets)
+    case = smoke.write_case(8, 1, str(tmp_path), out_hours=1, hours=1)
+    cfg = smoke.offline_cfg(case, "t", 1)
+    with smoke.HostSplit() as split, smoke.ResidualRecorder() as rec:
+        drun.run_offline(cfg, verbose=False, device="cpu",
+                         check_budgets_every=1, chunk_steps=2)
+    assert saved == (dio._upload, dio.compact_chunk,
+                     dio.FileForcing.__call__, dio.ChunkPrefetcher.get,
+                     dio.AsyncSink.submit, drun.make_chunk_step,
+                     utils.check_budgets)
+    out = split.report(8, 4)
+    assert out["h2d_bytes_per_step"] == 15 * 8 * 4
+    assert all(v > 0 for v in out["host_ms_per_step"].values()), out
+    assert rec.calls == 2 and all(0 <= v < 0.5 for v in rec.worst.values())
+    assert out["loop_seconds"] > 0

@@ -15,6 +15,8 @@ from noahmp_tpu_torch.kernels.tridiag import thomas_cuda
 from noahmp_tpu_torch.state import init_state, init_static
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DRIVER_MODULES = ("io", "run", "cli", "merge", "geo", "config", "netcdf",
+                  "solar")
 
 
 def _submodules():
@@ -28,6 +30,8 @@ def test_fresh_interpreter_imports_no_jax():
     assert "noahmp_tpu_torch.kernels.tridiag" in mods
     assert "noahmp_tpu_torch.physics.carbon" in mods
     assert "noahmp_tpu_torch.utils" in mods
+    for name in DRIVER_MODULES:
+        assert f"noahmp_tpu_torch.driver.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -120,3 +124,62 @@ def test_importing_builds_nothing():
         assert _build.library_path(name).startswith(build_dir)
     if not torch.cuda.is_available():
         assert not os.path.exists(build_dir) or not os.listdir(build_dir)
+
+
+def _offline_case(tmp_path):
+    """A 4-point case on disk: domain, init, a restart and a namelist."""
+    import datetime
+    import numpy as np
+    from noahmp_tpu_torch.cases import conus_case
+    from noahmp_tpu_torch.driver import io
+    case = conus_case(4, seed=0, days=1, outdir=str(tmp_path / "case"))
+    io.save_restart(str(tmp_path / "restart.nc"), init_state(4, device="cpu"),
+                    datetime.datetime(2000, 7, 1))
+    geo_em = str(tmp_path / "geo_em.nc")
+    io.netcdf.write_classic(geo_em, {
+        "XLAT_M": np.full((1, 2, 2), 40.0, np.float32),
+        "LU_INDEX": np.full((1, 2, 2), 7.0, np.float32)})
+    return case, str(tmp_path / "restart.nc"), geo_em
+
+
+@pytest.mark.parametrize("entry", ["io.load_domain", "io.load_init",
+                                   "io.load_restart", "run.run_offline",
+                                   "cli.main", "geo.static_from_geo_em"])
+def test_driver_default_device_is_the_card(entry, tmp_path):
+    """The offline driver's entry points that put tensors on a device
+    raise without a card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    from noahmp_tpu_torch.driver import cli, geo, io, run
+    from noahmp_tpu_torch.driver.config import Config
+    case, restart, geo_em = _offline_case(tmp_path)
+    nml = os.path.join(case, "case.nml")
+    calls = {
+        "io.load_domain": lambda d: io.load_domain(
+            os.path.join(case, "domain.nc"), **d),
+        "io.load_init": lambda d: io.load_init(
+            os.path.join(case, "init.nc"), 4, **d),
+        "io.load_restart": lambda d: io.load_restart(restart, **d),
+        "run.run_offline": lambda d: run.run_offline(
+            Config.from_namelist(nml), verbose=False, chunk_steps=1,
+            **d) if not d else None,
+        "cli.main": lambda d: cli.main([nml] + (
+            ["--device", d["device"]] if d else [])) if not d else None,
+        "geo.static_from_geo_em": lambda d: geo.static_from_geo_em(
+            geo_em, **d),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]({})
+    calls[entry]({"device": "cpu"})
+
+
+@pytest.mark.parametrize("name", ["merge", "config", "netcdf", "solar"])
+def test_host_only_driver_modules_never_look_for_a_card(name):
+    """config, netcdf, solar and merge hold numpy and files only: they
+    place nothing on a device and never ask whether there is one."""
+    import importlib
+    mod = importlib.import_module(f"noahmp_tpu_torch.driver.{name}")
+    with open(mod.__file__) as fh:
+        source = fh.read()
+    for word in ("cuda", "is_available", "torch.device", "import torch"):
+        assert word not in source, (name, word)
