@@ -25,7 +25,11 @@ offline driver on the generated CONUS case: through the CLI and as a
 resume, exact and compact forcing, at 1,048,576 points, the kernels
 against their plain version on that domain, and the card against the
 CPU, where the points outside the bars are counted and each explained
-or not by what the plain step does under a last-bit change.
+or not by what the plain step does under a last-bit change.  On the same
+case the land-point axis over ``torch.distributed`` ranks: a one-rank
+NCCL mesh through ``run_offline(mesh=...)``, and two gloo ranks through
+``driver.multihost`` sharing the one card, plain and strict, each held
+bit for bit against the run in one process.
 
 Each phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}``; then the card's name and power limit; the last
@@ -55,11 +59,13 @@ import ctypes
 import datetime
 import filecmp
 import gzip
+import io
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -83,7 +89,7 @@ from noahmp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
 from noahmp_tpu_torch.driver import cli as driver_cli
 from noahmp_tpu_torch.driver import io as driver_io
 from noahmp_tpu_torch.driver import run as driver_run
-from noahmp_tpu_torch.driver.config import Config
+from noahmp_tpu_torch.driver.config import _ANCHOR as ANCHOR, Config
 from noahmp_tpu_torch.driver.step import STRICT_TOL
 from noahmp_tpu_torch.kernels import _build, column
 from noahmp_tpu_torch.kernels.column import column_cuda, column_plain
@@ -96,6 +102,7 @@ from noahmp_tpu_torch.params.gathered import gather_params
 from noahmp_tpu_torch.physics import flux as flux_physics
 from noahmp_tpu_torch.state import Flux, Forcing, State, Static
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 N_POINTS = 65536
 N_STEPS = 8
@@ -134,6 +141,11 @@ OFFLINE_FORCING_HOURS = 12          # offline_forcing: exact and compact
 OFFLINE_LARGE_HOURS = 6             # offline_large at N_LARGE points
 N_OFFLINE_CPU = 4096                # offline_cpu_agreement
 OFFLINE_CPU_HOURS = 6
+DIST_HOURS = 12                     # dist_*: model hours, exact forcing
+DIST_WORLD = 2                      # dist_two_ranks: processes on the card
+DIST_PROCESS_TIMEOUT = 300          # seconds, a rank of dist_two_ranks
+DIST_GROUP_TIMEOUT = 120            # seconds a collective waits for a peer
+DIST_CORRUPT_HOUR = 1               # forcing file corrupt on rank 1's rows
 RESYNC_STEPS = 3    # offline_kernel_agreement: from the init State and
                     # from the last restart of offline_case, each
 # Two implementations of the step that differ in the last bit part
@@ -749,23 +761,54 @@ def phase_fused_cpu_agreement(params, params_cpu, device, n=4096):
          worst={"regime": worst[0], "leaf": worst[1], "err": worst[2]})
 
 
+@contextlib.contextmanager
+def chen97_fixed_carry():
+    """``physics/flux.py:CHEN97_FIXED_CARRY`` on inside, restored after:
+    a plan built inside carries it into the kernels, and the plain
+    version reads it when it runs."""
+    before = flux_physics.CHEN97_FIXED_CARRY
+    flux_physics.CHEN97_FIXED_CARRY = True
+    try:
+        yield
+    finally:
+        flux_physics.CHEN97_FIXED_CARRY = before
+
+
 def phase_fused_options(params, device, n):
     """Every option value the fused step accepts, one at a time beside
-    the defaults, on a snow case and a stress case."""
+    the defaults, on a snow case and a stress case; and ``opt_sfc = 2``
+    with the Chen97 carry switch on."""
     report = []
-    for opts in fused_option_sets():
+    sets = [(opts, False) for opts in fused_option_sets()]
+    sets.append((Options(sfc=2), True))
+    for opts, fixed_carry in sets:
         changed = {k: v for k, v in opts._asdict().items()
                    if v != getattr(Options(), k)}
+        if fixed_carry:
+            changed["CHEN97_FIXED_CARRY"] = True
         for regime in ("cold_snow", "hot_dry"):
-            ref, got = fused_against_plain(params, opts,
-                                           hetero_case(regime, n), device)
+            with (chen97_fixed_carry() if fixed_carry
+                  else contextlib.nullcontext()):
+                ref, got = fused_against_plain(params, opts,
+                                               hetero_case(regime, n), device)
             err, leaf, ratio, _eq, _n = compare_step(
                 f"{changed} hetero/{regime}", ref, got)
+            if fixed_carry:
+                default, _ = fused_against_plain(params, opts,
+                                                 hetero_case(regime, n),
+                                                 device)
+                if torch.equal(default[0].ch, got[0].ch):
+                    raise AssertionError("Chen97 carry on: the kernels' ch "
+                                         "is the default's")
             report.append({"options": changed, "regime": regime,
                            "max_err": err, "leaf": leaf,
                            "share_of_bar": ratio})
+    chen97 = max(r["share_of_bar"] for r in report
+                 if "CHEN97_FIXED_CARRY" in r["options"])
     emit("fused_options", n=n, checked=len(report),
-         worst=max(report, key=lambda r: r["share_of_bar"]), cases=report)
+         worst=max(report, key=lambda r: r["share_of_bar"]),
+         chen97_fixed_carry_share_of_bar=chen97, cases=report)
+    return chen97
 
 
 def phase_no_sync(step, params, device, n):
@@ -1486,6 +1529,348 @@ def phase_offline_case(params, device, n, days, work, out_hours=3,
               " the fused step's kernels alone on this domain (CUDA events)")
     return case, launches, {"wall_seconds": wall, **out,
                             "kernel_ms_per_step": kernel_ms}
+
+
+def dist_namelist(case, tag, hours, indir=None):
+    """A copy of the case's namelist for the dist phases (the launcher
+    reads a file): outputs under ``tag``, ``hours`` model hours,
+    restarts at half and at the end, forcing from ``indir`` if given."""
+    with open(os.path.join(case, "case.nml")) as fh:
+        text = fh.read()
+    sub = {"output_directory": os.path.join(case, tag, "ldasout"),
+           "restart_directory": os.path.join(case, tag, "restart"),
+           "restart_frequency": f"{max(1, hours // 2)} hour"}
+    if indir is not None:
+        sub["input_directory"] = indir
+    for key, value in sub.items():
+        text = re.sub(rf"{key} = '[^']*'", f"{key} = '{value}'", text)
+    end = Config.from_namelist(os.path.join(case, "case.nml")).begdatetime \
+        + datetime.timedelta(hours=hours)
+    for key in ("year", "month", "day", "hour"):
+        text = re.sub(rf"end_{key}\s*= \d+",
+                      f"end_{key} = {getattr(end, key)}", text)
+    for key in ("output_directory", "restart_directory"):
+        os.makedirs(sub[key], exist_ok=True)
+    path = os.path.join(case, f"{tag}.nml")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+_RATE = re.compile(r"(\d+) steps x (\d+) points .*\(([\d,]+) point-steps/s\)")
+
+
+def loop_ms_per_step(text):
+    """ms a step of an offline run's loop, from its summary line (host
+    clock): (steps, ms)."""
+    m = _RATE.search(text)
+    if m is None:
+        raise AssertionError(f"no run summary in: {text[-2000:]}")
+    steps, n, rate = int(m[1]), int(m[2]), int(m[3].replace(",", ""))
+    return steps, 1000.0 * n / rate
+
+
+def run_summarised(cfg, **kw):
+    """run_offline with its summary read: (state, files, ms a step)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state, files = driver_run.run_offline(cfg, verbose=True, **kw)
+    return state, files, loop_ms_per_step(buf.getvalue())[1]
+
+
+def same_files(label, want, got_dir):
+    """Every file of ``want`` has a namesake in ``got_dir`` with the same
+    bytes."""
+    for path in want:
+        other = os.path.join(got_dir, os.path.basename(path))
+        if not filecmp.cmp(path, other, shallow=False):
+            raise AssertionError(f"{label}: {os.path.basename(path)} "
+                                 "differs from the one-process run's")
+
+
+def assert_states_equal(label, want, got):
+    for name, a, b in zip(State._fields, want, got):
+        a, b = a.cpu(), b.cpu()
+        if not bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()):
+            raise AssertionError(f"{label}: State.{name} differs")
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(args, world=DIST_WORLD, timeout=DIST_PROCESS_TIMEOUT):
+    """``driver.multihost`` in ``world`` processes on this machine, each
+    with a time limit; every process is ended before this returns.
+    Returns [(exit code, output)] in rank order."""
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "noahmp_tpu_torch.driver.multihost",
+                 *args, "--timeout", str(DIST_GROUP_TIMEOUT)],
+                cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + timeout
+        results = []
+        for rank, proc in enumerate(procs):
+            try:
+                out, _ = proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {rank} of {world} did not end "
+                                     f"within {timeout} s") from None
+            results.append((proc.returncode, out))
+        return results
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+class DcpTimer:
+    """Host milliseconds of every ``CheckpointManager`` build (its gloo
+    group connected), ``save`` (the State staged to the host; the write
+    goes on on DCP's thread) and ``close`` (waits for the last write),
+    while inside."""
+
+    def __enter__(self):
+        from noahmp_tpu_torch.dist.checkpoint import CheckpointManager
+        self._cls = CheckpointManager
+        self._real = (CheckpointManager.save, CheckpointManager.close,
+                      CheckpointManager.__init__)
+        self.save_ms, self.close_ms, self.build_ms = [], [], []
+
+        def timed(fn, into):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    into.append(1e3 * (time.perf_counter() - t0))
+            return wrapper
+
+        CheckpointManager.save = timed(self._real[0], self.save_ms)
+        CheckpointManager.close = timed(self._real[1], self.close_ms)
+        CheckpointManager.__init__ = timed(self._real[2], self.build_ms)
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.save, self._cls.close, self._cls.__init__ = self._real
+
+
+def phase_dist_one_rank(params, device, case, n, hours):
+    """``run_offline(cfg, mesh=make_mesh())`` in this process: a mesh of
+    one rank (NCCL on the card) over the case's first ``hours`` hours,
+    exact forcing, against the same run without a mesh: the same
+    ldasout bytes and final State, the launch count of the mesh path,
+    the run's DCP checkpoint and a save and restore giving the same
+    bits, and ``make_sharded_step``'s diagnostics against torch
+    reductions of the one-process flux."""
+    import torch.distributed as dist
+    from noahmp_tpu_torch.dist.checkpoint import CheckpointManager
+    from noahmp_tpu_torch.dist.mesh import make_mesh, make_sharded_step
+    plain_cfg = Config.from_namelist(dist_namelist(case, "dist_plain", hours))
+    plain_state, plain_files, plain_ms = run_summarised(plain_cfg,
+                                                        device=device)
+    mesh = make_mesh(device.type)
+    try:
+        cfg = Config.from_namelist(dist_namelist(case, "dist_one", hours))
+        column.reset_launches()
+        with DcpTimer() as dcp_ms:
+            state, files, mesh_ms = run_summarised(cfg, mesh=mesh)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = column_cuda.launches
+        # in turns: the mesh without DCP checkpoints, no mesh again
+        no_dcp = Config.from_namelist(dist_namelist(case, "dist_one_no_dcp",
+                                                    hours))
+        no_dcp_state, _f, no_dcp_ms = run_summarised(no_dcp, mesh=mesh,
+                                                     use_dcp=False)
+        assert_states_equal("dist_one_rank, no DCP", plain_state,
+                            no_dcp_state)
+        _s, _f, plain_ms_again = run_summarised(plain_cfg, device=device)
+        if device.type == "cuda" and launches != cfg.nsteps:
+            raise AssertionError(f"dist path: {launches} column_cuda calls "
+                                 f"for {cfg.nsteps} steps")
+        if [os.path.basename(f) for f in files] != [
+                os.path.basename(f) for f in plain_files]:
+            raise AssertionError("dist_one_rank: other ldasout files")
+        same_files("dist_one_rank", plain_files, cfg.outdir)
+        assert_states_equal("dist_one_rank, final", plain_state, state)
+
+        ckpt = CheckpointManager(os.path.join(cfg.resdir, "dcp"), mesh=mesh)
+        latest = ckpt.latest_step()
+        if latest != int((cfg.enddatetime - ANCHOR).total_seconds()):
+            raise AssertionError(f"dist_one_rank: latest checkpoint {latest}")
+        assert_states_equal("dist_one_rank, DCP of the run", state,
+                            ckpt.restore(latest, template=state))
+        ckpt.save(latest + 1, state, wait=True)
+        assert_states_equal("dist_one_rank, DCP save and restore", state,
+                            ckpt.restore(latest + 1, template=state))
+        ckpt.close()
+
+        static = driver_io.load_domain(cfg.constfile, device)
+        forcing = file_forcing(cfg, driver_io.static_to_host(static),
+                               cfg.enddatetime, device)
+        one = make_fused_step(params, cfg.options, cfg.dt, static,
+                              device=device)
+        sharded = make_sharded_step(params, cfg.options, cfg.dt, mesh,
+                                    static=static)
+        ref_s, ref_f = one(None, forcing, state)
+        got_s, got_f, diag = sharded(None, forcing, state)
+        assert_states_equal("dist_one_rank, sharded step", ref_s, got_s)
+        if not all(torch.equal(a, b) or bool(
+                ((a == b) | (a.isnan() & b.isnan())).all())
+                for a, b in zip(ref_f, got_f)):
+            raise AssertionError("dist_one_rank: the sharded step's Flux "
+                                 "differs from the fused step's")
+        peaks = {f"max_abs_{f}": float(getattr(ref_f, f).abs().max())
+                 for f in ("errsw", "erreng", "errwat")}
+        means = {f"mean_{f}": float(getattr(ref_f, f).double().mean())
+                 for f in ("fsh", "fsa")}
+        got = {k: float(v) for k, v in diag._asdict().items()}
+        for key, want in peaks.items():
+            if got[key] != want:
+                raise AssertionError(f"dist_one_rank: {key} {got[key]} "
+                                     f"against {want}")
+        rel = {key: abs(got[key] - want) / max(abs(want), 1e-30)
+               for key, want in means.items()}
+        if not max(rel.values()) <= 1e-6:
+            raise AssertionError(f"dist_one_rank: means {rel} relative")
+    finally:
+        dist.destroy_process_group()
+    card = nvidia_smi_line() if device.type == "cuda" else "cpu"
+    emit("dist_one_rank", n=n, hours=hours, steps=cfg.nsteps,
+         backend="nccl" if device.type == "cuda" else "gloo",
+         ldasout_files=len(files), ldasout_bytes_equal=True,
+         final_state_bit_equal=True, dcp_bit_equal=True,
+         launches=launches, diagnostics=got, reference=dict(**peaks, **means),
+         mean_rel_err=rel, ms_per_step=mesh_ms,
+         ms_per_step_mesh_no_dcp=no_dcp_ms,
+         ms_per_step_without_mesh=[plain_ms, plain_ms_again],
+         dcp_build_ms=dcp_ms.build_ms, dcp_save_ms=dcp_ms.save_ms,
+         dcp_close_ms=dcp_ms.close_ms, card=card,
+         note="ms_per_step: host clock over run_offline's loop (its "
+              "summary line), which ends after the last DCP write; in "
+              "turns: no mesh, mesh, mesh without DCP, no mesh; "
+              "dcp_build_ms: the manager's build, before the loop; "
+              "dcp_save_ms: host time of each CheckpointManager.save in "
+              "the loop (staging), dcp_close_ms: the wait for the last "
+              "write")
+    return {"launches": launches, "ms_per_step": mesh_ms,
+            "plain_ms_per_step": plain_ms, "plain_cfg": plain_cfg,
+            "plain_state": plain_state, "plain_files": plain_files}
+
+
+def corrupt_forcing(case, cfg, hours, rows):
+    """A copy of the forcing files the first ``hours`` hours read, whose
+    DIST_CORRUPT_HOUR file carries a corrupt shortwave record on
+    ``rows`` only."""
+    indir = os.path.join(case, "ldasin_corrupt")
+    os.makedirs(indir, exist_ok=True)
+    for k in range(hours + 2):
+        name = (cfg.begdatetime + datetime.timedelta(hours=k)).strftime(
+            "%Y%m%d%H") + ".nc"
+        shutil.copy(os.path.join(cfg.indir, name), indir)
+    name = (cfg.begdatetime + datetime.timedelta(
+        hours=DIST_CORRUPT_HOUR)).strftime("%Y%m%d%H") + ".nc"
+    arrays = driver_io.load_arrays(os.path.join(indir, name))
+    arrays["soldn"] = np.array(arrays["soldn"], np.float32)
+    arrays["soldn"][rows] = CORRUPT_SOLDN
+    driver_io.save_arrays(os.path.join(indir, name), arrays)
+    return indir
+
+
+def rank_abort_steps(results):
+    """The abort step each rank of a strict run names."""
+    steps = []
+    for rank, (code, out) in enumerate(results):
+        lines = [json.loads(line) for line in out.splitlines()
+                 if line.startswith('{"rank"')]
+        if code != 1 or len(lines) != 1:
+            raise AssertionError(f"strict rank {rank}: exit {code}, "
+                                 f"{len(lines)} abort lines: {out[-3000:]}")
+        steps.append(lines[0]["abort_step"])
+    return steps
+
+
+def phase_dist_two_ranks(device, case, n, hours, one_rank):
+    """``driver.multihost`` in two processes with gloo, both on this
+    card (NCCL refuses two ranks on one card), n / 2 points each, the
+    kernels already built: the merged ldasout and final restart against
+    the one-process run of ``phase_dist_one_rank``; then strict mode
+    with the forcing corrupt on rank 1's rows only: both ranks name the
+    step that the one-process strict run names, and the merged State
+    they stopped at is that run's."""
+    plain_cfg = one_rank["plain_cfg"]
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    results = launch_ranks([dist_namelist(case, "dist_two", hours),
+                            "--backend", "gloo", *cpu])
+    for rank, (code, out) in enumerate(results):
+        if code != 0:
+            raise AssertionError(f"dist_two_ranks: rank {rank} exited "
+                                 f"{code}: {out[-3000:]}")
+    steps, two_ms = loop_ms_per_step(results[0][1])
+    cfg = Config.from_namelist(os.path.join(case, "dist_two.nml"))
+    same_files("dist_two_ranks", one_rank["plain_files"], cfg.outdir)
+    last = "restart_" + cfg.enddatetime.strftime("%Y%m%d%H%M") + ".nc"
+    merged = driver_io.load_restart(os.path.join(cfg.resdir, last), "cpu")[0]
+    assert_states_equal("dist_two_ranks, merged final restart",
+                        one_rank["plain_state"], merged)
+    assert_states_equal("dist_two_ranks, one-process restart file",
+                        driver_io.load_restart(os.path.join(
+                            plain_cfg.resdir, last), "cpu")[0], merged)
+
+    indir = corrupt_forcing(case, plain_cfg, hours, slice(n // DIST_WORLD,
+                                                          None))
+    strict_cfg = Config.from_namelist(dist_namelist(case, "dist_strict_one",
+                                                    hours, indir))
+    try:
+        driver_run.run_offline(strict_cfg, verbose=False, device=device,
+                               check_budgets_every="strict")
+    except utils.ConservationError as err:
+        ref = err
+    else:
+        raise AssertionError("dist_two_ranks: the one-process strict run "
+                             "did not abort")
+    strict = launch_ranks([dist_namelist(case, "dist_strict_two", hours,
+                                         indir),
+                           "--backend", "gloo", "--check-budgets", "strict",
+                           *cpu])
+    abort_steps = rank_abort_steps(strict)
+    if abort_steps != [ref.step] * DIST_WORLD:
+        raise AssertionError(f"dist_two_ranks: the ranks abort at "
+                             f"{abort_steps}, one process at {ref.step}")
+    two_cfg = Config.from_namelist(os.path.join(case, "dist_strict_two.nml"))
+    # read as it is: load_restart refuses the non-finite values that the
+    # corrupt record leaves at some points
+    stopped = tree_from_numpy(State, driver_io.load_arrays(os.path.join(
+        two_cfg.resdir, f"abort_{ref.when.strftime('%Y%m%d%H%M')}.nc")),
+        "cpu")
+    assert_states_equal("dist_two_ranks, strict", ref.state, stopped)
+    card = nvidia_smi_line() if device.type == "cuda" else "cpu"
+    emit("dist_two_ranks", n=n, ranks=DIST_WORLD, points_per_rank=n //
+         DIST_WORLD, hours=hours, steps=steps, backend="gloo",
+         merged_ldasout_bytes_equal=len(one_rank["plain_files"]),
+         merged_final_restart_bit_equal=True,
+         strict={"corrupt_rows": f"[{n // DIST_WORLD}, {n})",
+                 "corrupt_hour": DIST_CORRUPT_HOUR, "abort_step": ref.step,
+                 "ranks_abort_steps": abort_steps,
+                 "merged_state_bit_equal": True},
+         ms_per_step=two_ms,
+         ms_per_step_one_process=one_rank["plain_ms_per_step"], card=card,
+         note="ms_per_step: host clock over rank 0's loop, from its summary "
+              "line; the two ranks share one card and one host, so this "
+              "is no scaling figure")
+    return {"ms_per_step": two_ms}
 
 
 def phase_offline_forcing(device, case, n, hours, reps=2):
@@ -2505,6 +2890,8 @@ def cpu_rehearsal():
                                                    out_hours=1, hours=2)
         phase_offline_forcing(device, case, 64, 2)
         phase_offline_kernel_agreement(params, device, case, 64)
+        dist_one = phase_dist_one_rank(params, device, case, 64, 2)
+        phase_dist_two_ranks(device, case, 64, 2, dist_one)
         shutil.rmtree(case)
         phase_offline_large(device, 64, 2, work, None, out_hours=1)
         phase_offline_cpu_agreement(device, 64, 2, work, out_hours=1)
@@ -2553,7 +2940,7 @@ def main():
     # the fused path and the column kernels it launches
     column_launches = phase_fused_step(params, device, N_POINTS, N_STEPS)
     phase_fused_cpu_agreement(params, params_cpu, device)
-    phase_fused_options(params, device, N_OPTIONS)
+    chen97 = phase_fused_options(params, device, N_OPTIONS)
     phase_no_sync(step, params, device, N_POINTS)
 
     # the further paths: carbon through both steps, the multi-step
@@ -2580,6 +2967,11 @@ def main():
         offline_forcing = phase_offline_forcing(device, case, N_OFFLINE,
                                                 OFFLINE_FORCING_HOURS)
         phase_offline_kernel_agreement(params, device, case, N_OFFLINE)
+        # the land-point axis over torch.distributed ranks on that case
+        dist_one = phase_dist_one_rank(params, device, case, N_OFFLINE,
+                                       DIST_HOURS)
+        dist_two = phase_dist_two_ranks(device, case, N_OFFLINE, DIST_HOURS,
+                                        dist_one)
         shutil.rmtree(case)
         offline_large = phase_offline_large(device, N_LARGE,
                                             OFFLINE_LARGE_HOURS, work,
@@ -2606,10 +2998,12 @@ def main():
         "launches_carbon_path": carbon_launches["column"],
         "launches_chunk_path": chunk_launches["column"],
         "launches_offline_path": offline_launches["column"],
+        "launches_dist_path": dist_one["launches"],
         "launches_per_step": column.device_launches(N_POINTS),
         "max_abs_err": worst[0],
         "max_abs_err_at": f"{worst[1]}: {worst[2]}",
         "max_share_of_bar": worst[3],
+        "chen97_fixed_carry_share_of_bar": chen97,
         "ms": timing["ms"], "ms_isolated": timing["ms_isolated"],
         "ms_1m": timing["ms_large"],
         "ms_hetero_cold_snow": timing["ms_hetero_cold_snow"],
@@ -2631,6 +3025,9 @@ def main():
         "offline_compact_ms_per_step":
             offline_forcing["compact"]["ms_per_step"],
         "offline_1m_ms_per_step": offline_large["ms_per_step"],
+        "dist_one_rank_ms_per_step": dist_one["ms_per_step"],
+        "dist_without_mesh_ms_per_step": dist_one["plain_ms_per_step"],
+        "dist_two_ranks_one_card_ms_per_step": dist_two["ms_per_step"],
         "step_wall_ms": timing["wall_ms"],
         "host_share_ms": timing["wall_ms"] - timing["ms"],
         "host_enqueue_ms": timing["host_enqueue_ms"],
@@ -2666,7 +3063,10 @@ def main():
                   "offline_forcing, exact and compact in turns; "
                   f"offline_large at n = {N_LARGE}, compact), "
                   "offline_kernel_ms_per_step the kernels alone on that "
-                  "domain (CUDA events); "
+                  "domain (CUDA events); dist_*: the same loop over "
+                  f"{DIST_HOURS} hours of that case, a one-rank NCCL mesh, "
+                  "no mesh, and two gloo ranks sharing the one card and "
+                  "host (rank 0's loop; no scaling figure); "
                   "stages[].ms: one launch alone, back to back with itself; "
                   "plain_ms: summed device time of the eager step's kernels "
                   "(torch.profiler); plain_wall_ms and step_wall_ms: host "
@@ -2682,8 +3082,9 @@ def main():
     for entry in entries:
         keys = ["launches", "launches_carbon_path", "launches_chunk_path"]
         if entry["name"] == "column_cuda":
-            # the offline path runs the fused step only: no Thomas launch
-            keys.append("launches_offline_path")
+            # the offline and dist paths run the fused step only: no
+            # Thomas launch
+            keys += ["launches_offline_path", "launches_dist_path"]
         for key in keys:
             if entry[key] <= 0:
                 raise AssertionError(f"{entry['name']}: {key} = "

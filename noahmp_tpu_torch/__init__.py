@@ -32,6 +32,7 @@ from .params import load_params, Params
 from .state import State, Static, Forcing, Flux, init_state, init_static
 from .driver.step import (make_step, make_fused_step, make_chunk_step,
                           make_simulate, simulate, STRICT_SENTINEL)
+from . import utils
 
 __version__ = "0.1.0"
 
@@ -40,5 +41,5 @@ __all__ = [
     "Options", "DEFAULT_OPTIONS", "load_params", "Params",
     "State", "Static", "Forcing", "Flux", "init_state", "init_static",
     "make_step", "make_fused_step", "make_chunk_step", "make_simulate",
-    "simulate", "STRICT_SENTINEL", "__version__",
+    "simulate", "STRICT_SENTINEL", "utils", "__version__",
 ]

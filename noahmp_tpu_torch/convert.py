@@ -35,6 +35,25 @@ def tree_from_numpy(cls, leaves: dict, device=None):
     return cls(**{name: _leaf(leaves[name], device) for name in cls._fields})
 
 
+def tree_on_device(cls, tree, device):
+    """A container of tensors or numpy arrays as ``cls`` on ``device``,
+    every leaf contiguous (what the fused step's plan requires); leaves
+    already there and contiguous stay as they are."""
+    leaves = []
+    for name, leaf in zip(cls._fields, tree):
+        if not isinstance(leaf, torch.Tensor):
+            leaf = np.asarray(leaf)
+            if leaf.dtype not in (np.float32, np.int32):
+                raise TypeError(f"{cls.__name__}.{name} is {leaf.dtype}, "
+                                "needs float32 or int32")
+            # a C-ordered copy: a broadcast view (zsoil, a held forcing
+            # field) copied in numpy's default order can come out
+            # column-major
+            leaf = torch.from_numpy(np.array(leaf, order="C"))
+        leaves.append(leaf.to(device).contiguous())
+    return cls(*leaves)
+
+
 def tree_to_numpy(t) -> dict:
     """A container's leaves as numpy arrays on the host."""
     return {name: getattr(t, name).detach().cpu().numpy()

@@ -303,6 +303,7 @@ struct ColumnArgs {
   int64_t n;
   float dt;
   OptionSet opt;
+  int chen97_fixed_carry;  // physics/flux.py:CHEN97_FIXED_CARRY, 0 or 1
   ClassScalars cls;
   GenScalars gen;
 };

@@ -214,9 +214,9 @@ NM_INL void energy_vege_tile(const Point& q) {
   const float htop = sm.htop(), z0mg = sm.z0mg();
 
   VegeFluxOut vf;
-  vege_flux(q.p, a.gen, a.opt, a.dt, q.fx.get_sav(), q.fx.get_sag(),
-            q.fo.lwdn(), sm.ur(), q.fo.uu(), q.fo.vv(), q.fo.sfctmp(),
-            sm.thair(), q.fo.q2(), sm.eair(), sm.rhoair(), q.st.snowh(),
+  vege_flux(q.p, a.gen, a.opt, a.chen97_fixed_carry, a.dt, q.fx.get_sav(),
+            q.fx.get_sag(), q.fo.lwdn(), sm.ur(), q.fo.uu(), q.fo.vv(),
+            q.fo.sfctmp(), sm.thair(), q.fo.q2(), sm.eair(), sm.rhoair(), q.st.snowh(),
             sm.elai() + sm.esai(), sm.gammav(), sm.gammag(), q.st.fwet(),
             sm.laisun(), sm.laisha(), q.p.cwpvt(),
             mx(htop, z0mg * 2.0f + MPE), sm.zlvl(), sm.zpd(),
@@ -260,8 +260,9 @@ NM_INL void energy_bare_tile(const Point& q) {
   const float snowh = q.st.snowh();
 
   BareFluxOut bf;
-  bare_flux(a.gen, a.cls, a.opt, q.sc.lutyp(), q.fx.get_sag(), q.fo.lwdn(),
-            sm.ur(), q.fo.uu(), q.fo.vv(), q.fo.sfctmp(), sm.thair(),
+  bare_flux(a.gen, a.cls, a.opt, a.chen97_fixed_carry, q.sc.lutyp(),
+            q.fx.get_sag(), q.fo.lwdn(), sm.ur(), q.fo.uu(), q.fo.vv(),
+            q.fo.sfctmp(), sm.thair(),
             q.fo.q2(), sm.eair(), sm.rhoair(), snowh, sm.stc_top(),
             sm.df_top(), sm.dz_top(), sm.zlvl(), snowh, sm.z0mg(), sm.emg(),
             sm.rsurf(), sm.latheag(), sm.gammag(), sm.rhsur(), q.fo.sfcprs(),

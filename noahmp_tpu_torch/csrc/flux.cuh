@@ -30,8 +30,9 @@ struct BareFluxOut {
 };
 
 // Exchange coefficients by the chosen scheme (flux.py:_exchange)
-NM_INL void exchange(int opt_sfc, float czil, bool first, Sfcdif1Carry& s1,
-                     Sfcdif2Carry& s2, float cm_prev, float ch_prev,
+NM_INL void exchange(int opt_sfc, int chen97_fixed_carry, float czil,
+                     bool first, Sfcdif1Carry& s1, Sfcdif2Carry& s2,
+                     float cm_prev, float ch_prev,
                      float sfctmp, float rhoair, float h, float qair,
                      float zlvl, float zpd, float z0m, float ur, float thz0,
                      float thair, float& cm, float& ch, float& fv,
@@ -43,9 +44,11 @@ NM_INL void exchange(int opt_sfc, float czil, bool first, Sfcdif1Carry& s1,
     fh2 = s1.fh2;
     return;
   }
-  // the conductances are fed back undivided (CHEN97_FIXED_CARRY False)
-  s2.akms = cm_prev * 1.0f;
-  s2.akhs = ch_prev * 1.0f;
+  // the conductances are fed back undivided (the reference's quirk), or
+  // multiplied by the wind speed again (flux.py:CHEN97_FIXED_CARRY)
+  const float scale = chen97_fixed_carry ? ur : 1.0f;
+  s2.akms = cm_prev * scale;
+  s2.akhs = ch_prev * scale;
   sfcdif2(first, s2, z0m, thz0, thair, ur, czil, zlvl);
   cm = s2.akms / ur;
   ch = s2.akhs / ur;
@@ -54,8 +57,9 @@ NM_INL void exchange(int opt_sfc, float czil, bool first, Sfcdif1Carry& s1,
 }
 
 NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
-                     const OptionSet& opt, float dt, float sav, float sag,
-                     float lwdn, float ur, float uu, float vv, float sfctmp,
+                     const OptionSet& opt, int chen97_fixed_carry, float dt,
+                     float sav, float sag, float lwdn, float ur, float uu,
+                     float vv, float sfctmp,
                      float thair, float qair, float eair, float rhoair,
                      float snowh, float vai, float gammav, float gammag,
                      float fwet, float laisun, float laisha, float cwp,
@@ -103,8 +107,9 @@ NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
     if (!first && c_done) break;
 
     float cm, ch, fv, fh2;
-    exchange(opt.sfc, gen.czil, first, s1, s2, c_cm, c_ch, sfctmp, rhoair,
-             c_h, qair, zlvl, zpd, z0m, ur, c_tah, thair, cm, ch, fv, fh2);
+    exchange(opt.sfc, chen97_fixed_carry, gen.czil, first, s1, s2, c_cm,
+             c_ch, sfctmp, rhoair, c_h, qair, zlvl, zpd, z0m, ur, c_tah,
+             thair, cm, ch, fv, fh2);
 
     const float rahc = mx(rdiv(1.0f, ch * ur), 1.0f);
     const float rawc = rahc;
@@ -280,8 +285,9 @@ NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
 }
 
 NM_INL void bare_flux(const GenScalars& gen, const ClassScalars& cls,
-                     const OptionSet& opt, int lutyp, float sag, float lwdn,
-                     float ur, float uu, float vv, float sfctmp, float thair,
+                     const OptionSet& opt, int chen97_fixed_carry, int lutyp,
+                     float sag, float lwdn, float ur, float uu, float vv,
+                     float sfctmp, float thair,
                      float qair, float eair, float rhoair, float snowh,
                      float stc_top, float df_top, float dz_top, float zlvl,
                      float zpd, float z0m, float emg, float rsurf,
@@ -301,8 +307,9 @@ NM_INL void bare_flux(const GenScalars& gen, const ClassScalars& cls,
 
   for (int it = 0; it < NITERB; ++it) {
     float cm_new, ch_new;
-    exchange(opt.sfc, gen.czil, it == 0, s1, s2, cm, ch, sfctmp, rhoair, h,
-             qair, zlvl, zpd, z0m, ur, tgb, thair, cm_new, ch_new, fv, fh2);
+    exchange(opt.sfc, chen97_fixed_carry, gen.czil, it == 0, s1, s2, cm, ch,
+             sfctmp, rhoair, h, qair, zlvl, zpd, z0m, ur, tgb, thair, cm_new,
+             ch_new, fv, fh2);
     cm = cm_new;
     ch = ch_new;
     if (opt.sfc != 1 && snowh > 0.0f) {

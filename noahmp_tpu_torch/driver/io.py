@@ -709,7 +709,11 @@ class OutputWriter:
 
 
 def _local_block(arr, lo, hi):
-    """Rows [lo, hi) of a batch-major array or tensor, on the host."""
+    """Rows [lo, hi) of a batch-major array or tensor, on the host.  A
+    leaf of hi - lo rows is taken whole: it holds those rows already (a
+    rank's own block under a mesh, ``dist/mesh.py``)."""
+    if arr.shape[0] == hi - lo:
+        lo, hi = 0, hi - lo
     if isinstance(arr, torch.Tensor):
         return arr[lo:hi].detach().cpu().numpy()
     return np.asarray(arr[lo:hi])

@@ -11,17 +11,19 @@ at restart_frequency.
 
 from __future__ import annotations
 
+import datetime
 import os
 import time
 
 import numpy as np
 import torch
 
+from ..convert import tree_on_device
 from ..device import resolve_device
 from ..params import load_params
 from ..state import State, Static, init_state, init_static
 from .. import utils
-from .config import Config, as_cadence
+from .config import _ANCHOR, Config, as_cadence
 from .step import STRICT_SENTINEL, make_chunk_step
 from . import io as io_mod
 
@@ -53,31 +55,12 @@ def _chunk_schedule(begin, end, ts, outfreq, res_cad, cap):
     return sched
 
 
-def _on_device(cls, tree, device):
-    """A container of tensors or numpy arrays as ``cls`` on ``device``,
-    every leaf contiguous (what the fused step's plan requires); leaves
-    already there and contiguous stay as they are."""
-    leaves = []
-    for name, leaf in zip(cls._fields, tree):
-        if not isinstance(leaf, torch.Tensor):
-            leaf = np.asarray(leaf)
-            if leaf.dtype not in (np.float32, np.int32):
-                raise TypeError(f"{cls.__name__}.{name} is {leaf.dtype}, "
-                                "needs float32 or int32")
-            # a C-ordered copy: a broadcast view (zsoil, a held forcing
-            # field) copied in numpy's default order can come out
-            # column-major
-            leaf = torch.from_numpy(np.array(leaf, order="C"))
-        leaves.append(leaf.to(device).contiguous())
-    return cls(*leaves)
-
-
 def run_offline(cfg: Config, verbose=True, forcing_provider=None,
                 static=None, state=None, n_points=None,
                 check_budgets_every=0, dispatch: str = "auto",
                 chunk_pointsteps: int = 2 ** 21,
                 chunk_steps: int = 0, forcing_mode: str = "exact",
-                device=None):
+                device=None, mesh=None, use_dcp=None, shard_output=None):
     """Run the offline case described by ``cfg``.  Returns
     (final_state, output_files).  ``check_budgets_every`` > 0 asserts
     the conservation residuals every N steps (advisory, on the sink's
@@ -86,7 +69,9 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
     exactly (func:688-721: |ERRSW| or |ERRENG| > 0.01 W/m2 on ANY step
     kills the run at that step) — the check runs on the device inside
     the chunk, the state stops advancing at the violating step, and a
-    ConservationError is raised naming it.
+    ConservationError is raised naming it; the error carries the
+    model time (``when``), the step (``step``) and the State it stopped
+    at (``state``).
 
     ``device=None`` means the card and raises when CUDA is not
     available; ``device="cpu"`` runs the fused step's plain version on
@@ -107,12 +92,35 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
     (bit-identical to the per-step path); "compact" uploads hourly
     frames + per-step scalars and interpolates on the device (~4x less
     host->device traffic; may differ from host interp by an ulp).
-    Compact engages only for the FileForcing chunk path.
+    Compact engages only for the FileForcing chunk path without a mesh;
+    under a mesh it falls back to exact, as in the JAX package.
 
-    Not taken here: a device mesh, orbax checkpoints and sharded output
-    (the JAX package's ``mesh``, ``use_orbax``, ``shard_output``).
+    ``mesh`` (``dist.mesh.make_mesh``): spread the land points over the
+    mesh's ranks.  Every rank calls ``run_offline`` with the same
+    arguments; ``static`` and ``state``, when given, hold every point.
+    Each rank advances its own block (``dist.mesh.process_slice``) on its
+    own device (``device`` may name it or stay ``None``) through the
+    fused chunk, reads only its rows of the forcing files, and returns
+    its rows of the final State; a ``forcing_provider`` given under a
+    mesh returns this rank's rows.  Nothing but strict mode's flag is
+    communicated, and nothing on the prefetch or sink threads.
+
+    ``use_dcp`` (default: with a mesh) stands where the JAX package's
+    ``use_orbax`` stood: restarts are also saved, asynchronously, as
+    ``torch.distributed.checkpoint`` checkpoints under
+    ``<restart_directory>/dcp`` (steps named by model seconds since
+    ``config._ANCHOR``), and a run with ``restart`` set resumes from the
+    latest one.  The restart files are written all the same: DCP
+    checkpoints are not readable by the JAX package, they are.
+    ``shard_output`` (default: a mesh of more than one rank): each rank
+    writes its own ``.pLO-HI`` ldasout and restart files, which
+    ``merge_shard_files`` reassembles.
     """
-    device = resolve_device(device)
+    if mesh is not None:
+        from ..dist.mesh import process_slice, rank_device
+        device = rank_device(mesh, device)
+    else:
+        device = resolve_device(device)
     params = load_params(cfg.veg_scheme, cfg.soil_scheme, device=device)
 
     if static is None:
@@ -123,35 +131,62 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
     # host-side copy for forcing providers / advisory checks; the fused
     # step gathers its per-point parameters from the device copy once
     static_host = io_mod.static_to_host(static)
-    static = _on_device(Static, static, device)
-    n = static.lat.shape[0]
+    n = static_host.lat.shape[0]
+    lo, hi = (0, n) if mesh is None else process_slice(mesh, n)
+    if mesh is not None:
+        static = static_host = Static(*[leaf[lo:hi] for leaf in static_host])
+    static = tree_on_device(Static, static, device)
 
     when = cfg.begdatetime
     if state is None:
+        # under a mesh the files are read whole and cut to this rank's rows
+        load_on = device if mesh is None else "cpu"
         respath = os.path.join(cfg.resdir, cfg.resfile)
         if cfg.restart and os.path.exists(io_mod._npz_path(respath)):
-            state, when = io_mod.load_restart(respath, device)
+            state, when = io_mod.load_restart(respath, load_on)
         elif os.path.exists(io_mod._npz_path(cfg.initfile)):
-            state = io_mod.load_init(cfg.initfile, n, device)
+            state = io_mod.load_init(cfg.initfile, n, load_on)
         else:
-            state = init_state(n, device=device)
-    state = _on_device(State, state, device)
+            state = init_state(n, device=load_on)
+    if mesh is not None:
+        state = State(*[leaf[lo:hi] for leaf in state])
+    state = tree_on_device(State, state, device)
+
+    if use_dcp is None:
+        use_dcp = mesh is not None
+    ckpt = None
+    if use_dcp:
+        from ..dist.checkpoint import CheckpointManager
+        ckpt = CheckpointManager(os.path.join(cfg.resdir, "dcp"), mesh=mesh)
+        latest = ckpt.latest_step() if cfg.restart else None
+        if latest is not None:
+            state = ckpt.restore(latest, template=state)
+            when = _ANCHOR + datetime.timedelta(seconds=latest)
 
     if forcing_provider is None:
         if os.path.isdir(cfg.indir) and os.listdir(cfg.indir):
-            forcing_provider = io_mod.FileForcing(cfg.indir, cfg.infreq,
-                                                  static_host)
+            forcing_provider = io_mod.FileForcing(
+                cfg.indir, cfg.infreq, static_host,
+                points_slice=None if mesh is None else (lo, hi))
         else:
             forcing_provider = io_mod.SyntheticForcing(static_host)
 
-    writer = io_mod.OutputWriter(cfg.outdir, cfg.outfreq)
+    if shard_output is None:
+        shard_output = mesh is not None and mesh.size() > 1
+    if shard_output and mesh is None:
+        raise ValueError("shard_output needs a mesh")
+    shard = (lo, hi, n) if shard_output else None
+    writer = io_mod.OutputWriter(cfg.outdir, cfg.outfreq, shard=shard)
     res_cad = as_cadence(cfg.resfreq)
 
     def save_restart_at(when, state):
         path = os.path.join(
             cfg.resdir,
             "restart_" + when.strftime("%Y%m%d%H%M") + ".nc")
-        io_mod.save_restart(path, state, when)
+        if shard is None:
+            io_mod.save_restart(path, state, when)
+        else:
+            io_mod.save_restart_shard(path, state, when, shard)
 
     if dispatch == "auto":
         dispatch = "chunk"
@@ -171,7 +206,7 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
         ("errwat", "absmax"))
     chunk = make_chunk_step(params, cfg.options, cfg.dt,
                             acc_spec=acc_spec, strict_budgets=strict,
-                            static=static, device=device)
+                            static=static, device=device, mesh=mesh)
     ts = cfg.timestep
     cap = max(1, int(chunk_pointsteps) // max(n, 1))
     if chunk_steps:
@@ -188,7 +223,7 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
     # the main loop only enqueues device work.
     prefetch = io_mod.ChunkPrefetcher(
         forcing_provider, schedule, ts, device,
-        compact=(forcing_mode == "compact"))
+        compact=(forcing_mode == "compact" and mesh is None))
     sink = io_mod.AsyncSink()
 
     def record_errwat(arr):
@@ -207,7 +242,7 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
         for when, steps in schedule:
             forcings = prefetch.get()
             if acc is None:
-                acc = tuple(torch.zeros(n, dtype=torch.float32,
+                acc = tuple(torch.zeros(hi - lo, dtype=torch.float32,
                                         device=device)
                             for _ in acc_spec)
             if strict:
@@ -220,12 +255,15 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
                     # state as of that step is in `state`
                     errsw_m = _host_abs_max(acc[-3])
                     erreng_m = _host_abs_max(acc[-2])
-                    raise utils.ConservationError(
+                    err = utils.ConservationError(
                         f"budget abort (strict): |ERRSW| or "
                         f"|ERRENG| > 0.01 W/m2 at model time "
                         f"{when + bad * ts} (step {nsteps + bad}); "
                         f"window absmax errsw={errsw_m:.4g} "
                         f"erreng={erreng_m:.4g}")
+                    err.when, err.step, err.state = (when + bad * ts,
+                                                     nsteps + bad, state)
+                    raise err
             else:
                 state, acc = chunk(static, forcings, state, acc)
             when = when + steps * ts
@@ -253,15 +291,22 @@ def run_offline(cfg: Config, verbose=True, forcing_provider=None,
                     win_steps = 0
             if res_cad.due(when):
                 sink.submit(save_restart_at, when, state)
+                if ckpt is not None:
+                    # staged to the host here, written on DCP's thread
+                    ckpt.save(int((when - _ANCHOR).total_seconds()), state)
     finally:
         prefetch.close()
         sink.close()
+        if ckpt is not None:
+            ckpt.close()
     elapsed = time.perf_counter() - t0
 
     if verbose:
         rate = n * nsteps / max(elapsed, 1e-9)
+        where = device.type if mesh is None else \
+            f"{mesh.size()} ranks ({device.type})"
         print(f"noahmp_tpu_torch: {nsteps} steps x {n} points on "
-              f"{device.type} in {elapsed:.2f}s  "
+              f"{where} in {elapsed:.2f}s  "
               f"({rate:,.0f} point-steps/s)")
         print(f"  max |errwat| last window: {errwat_box[0]:.3e} mm")
     return state, writer._files

@@ -19,6 +19,7 @@ while the host is already enqueuing the next ones.
 """
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..kernels.column import ColumnPlan, column_cuda, column_plain
@@ -201,7 +202,7 @@ def make_simulate(params, opts, dt, collect_fluxes=True, static=None,
 
 
 def make_chunk_step(params, opts, dt, acc_spec=(), strict_budgets=False,
-                    static=None, device=None):
+                    static=None, device=None, mesh=None):
     """Multi-step dispatch for an offline driver: one call advances a
     whole chunk of timesteps and accumulates flux statistics on the
     device, so that the caller fetches results at its output cadence
@@ -223,6 +224,16 @@ def make_chunk_step(params, opts, dt, acc_spec=(), strict_budgets=False,
     ``device=None`` means the card and raises when CUDA is not
     available.
 
+    ``mesh`` (``dist.mesh.make_mesh``): the chunk advances this rank's
+    block of points (``static``, the forcings and the state hold its
+    rows) on this rank's device, which ``device`` may name or leave
+    ``None``.  Without strict mode it needs no collective.  Strict mode
+    is global, as in the JAX package: every step's violation flag is
+    reduced over the ranks with one ``all_reduce(MAX)`` on the device,
+    so that every point of every rank freezes after the first step
+    that breaks a budget anywhere, and every rank returns the same
+    ``bad_step``.
+
     ``strict_budgets``: reproduce the reference's per-step fatal abort
     semantics (func:688-721: |ERRSW| > 0.01 or |ERRENG| > 0.01 W/m2
     kills the run at that step) without leaving the device.  The chunk
@@ -242,6 +253,11 @@ def make_chunk_step(params, opts, dt, acc_spec=(), strict_budgets=False,
                              f"one of {ACC_OPS}")
         if field not in Flux._fields:
             raise ValueError(f"acc_spec: Flux has no field {field!r}")
+    group = None
+    if mesh is not None:
+        from ..dist.mesh import mesh_group, rank_device
+        device = rank_device(mesh, device)
+        group = mesh_group(mesh) if strict_budgets else None
     advance, device = _sequence_step(params, opts, dt, static, device)
 
     def accumulate(acc, flux, frozen):
@@ -276,6 +292,10 @@ def make_chunk_step(params, opts, dt, acc_spec=(), strict_budgets=False,
                 new_state, flux = advance(static_now, forcings, t, state)
                 violated = ((flux.errsw.abs() > STRICT_TOL)
                             | (flux.erreng.abs() > STRICT_TOL)).any()
+                if group is not None:
+                    flag = violated.to(torch.int32)
+                    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+                    violated = flag.bool()
                 bad = torch.minimum(bad, torch.where(violated & ~frozen,
                                                      index[t], sentinel))
                 state = type(state)(*[torch.where(frozen, old, new)

@@ -64,6 +64,7 @@ import torch
 from ..options import Options
 from ..params.gathered import (CLASS_SCALARS, GATHERED_FIELDS, GEN_SCALARS,
                                Gathered)
+from ..physics import flux as flux_physics
 from ..physics.sflx import step_columns
 from ..state import Flux, Forcing, State, Static
 from ._build import CSRC_DIR, load_library
@@ -162,9 +163,12 @@ def check_layout():
 
 class ColumnConsts(NamedTuple):
     """What the kernel takes by value: read from the tables once, when a
-    step is built, so that a step itself never waits for the card."""
+    step is built, so that a step itself never waits for the card.
+    ``chen97_fixed_carry`` is ``physics/flux.py:CHEN97_FIXED_CARRY`` as
+    it stood then (the JAX package reads its switch when it traces)."""
     dt: float
     opts: tuple
+    chen97_fixed_carry: int
     cls: tuple
     gen: tuple
 
@@ -191,6 +195,7 @@ def _args_type():
                     ("n", ctypes.c_int64),
                     ("dt", ctypes.c_float),
                     ("opt", ctypes.c_int * len(head["OPTION"])),
+                    ("chen97_fixed_carry", ctypes.c_int),
                     ("cls", ctypes.c_int * len(head["CLASS"])),
                     ("gen", ctypes.c_float * len(head["GEN"]))]
 
@@ -307,6 +312,7 @@ class ColumnPlan:
         self.gathered = gathered
         self.static = static
         self.consts = ColumnConsts(float(dt), tuple(int(v) for v in opts),
+                                   int(bool(flux_physics.CHEN97_FIXED_CARRY)),
                                    tuple(gathered.class_scalars()),
                                    tuple(gathered.gen_scalars()))
         self.n = static.lat.shape[0]
@@ -334,6 +340,7 @@ class ColumnPlan:
         args.n = self.n
         args.dt = self.consts.dt
         args.opt[:] = self.consts.opts
+        args.chen97_fixed_carry = self.consts.chen97_fixed_carry
         args.cls[:] = self.consts.cls
         args.gen[:] = self.consts.gen
         self.args = args

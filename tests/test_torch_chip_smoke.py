@@ -245,3 +245,62 @@ def test_host_split_times_the_offline_run_and_restores(smoke, tmp_path):
     assert all(v > 0 for v in out["host_ms_per_step"].values()), out
     assert rec.calls == 2 and all(0 <= v < 0.5 for v in rec.worst.values())
     assert out["loop_seconds"] > 0
+
+
+def test_loop_ms_per_step_reads_the_run_summary(smoke):
+    text = ("mesh: 2 ranks on cuda, backend gloo\n"
+            "noahmp_tpu_torch: 48 steps x 131072 points on 2 ranks (cuda) "
+            "in 0.61s  (10,485,760 point-steps/s)\n")
+    steps, ms = smoke.loop_ms_per_step(text)
+    assert steps == 48 and ms == pytest.approx(12.5)
+    with pytest.raises(AssertionError, match="no run summary"):
+        smoke.loop_ms_per_step("rank 1 printed nothing")
+
+
+def test_rank_abort_steps_needs_one_abort_line_a_rank(smoke):
+    line = '{"rank": %d, "abort_step": 5, "abort_time": "x", "error": "e"}'
+    assert smoke.rank_abort_steps([(1, line % 0), (1, "noise\n" + line % 1)
+                                   ]) == [5, 5]
+    with pytest.raises(AssertionError, match="exit 0"):
+        smoke.rank_abort_steps([(1, line % 0), (0, "finished")])
+    with pytest.raises(AssertionError, match="0 abort lines"):
+        smoke.rank_abort_steps([(1, "a traceback")])
+
+
+def test_dist_namelist_cuts_the_run_and_moves_the_outputs(smoke, tmp_path):
+    from noahmp_tpu_torch.cases import conus_case
+    from noahmp_tpu_torch.driver.config import Config
+    case = conus_case(4, seed=0, days=1, outdir=str(tmp_path / "case"))
+    cfg = Config.from_namelist(smoke.dist_namelist(case, "two", 12,
+                                                   indir="/x/ldasin"))
+    assert cfg.enddatetime - cfg.begdatetime == smoke.datetime.timedelta(
+        hours=12)
+    assert cfg.resfreq.seconds == 6 * 3600.0
+    assert cfg.outdir == os.path.join(case, "two", "ldasout")
+    assert cfg.resdir == os.path.join(case, "two", "restart")
+    assert os.path.isdir(cfg.outdir) and os.path.isdir(cfg.resdir)
+    assert cfg.indir == "/x/ldasin"
+    assert Config.from_namelist(os.path.join(case, "case.nml")).outdir \
+        == os.path.join(case, "ldasout")        # the case's own is kept
+
+
+def test_launch_ranks_ends_a_hung_rank(smoke, monkeypatch, tmp_path):
+    """A rank that outlives its time limit fails the phase, and no
+    process of the launch is left running."""
+    monkeypatch.setattr(smoke, "DIST_GROUP_TIMEOUT", 30)
+    started = []
+    real = subprocess.Popen
+
+    def popen(argv, **kw):
+        proc = real([smoke.sys.executable, "-c",
+                     "import os, time\n"
+                     "time.sleep(0 if os.environ['RANK'] == '0' else 60)"],
+                    **kw)
+        started.append(proc)
+        return proc
+
+    monkeypatch.setattr(smoke.subprocess, "Popen", popen)
+    with pytest.raises(AssertionError, match="rank 1 of 2 did not end"):
+        smoke.launch_ranks(["case.nml"], timeout=3)
+    assert len(started) == 2
+    assert all(proc.poll() is not None for proc in started)

@@ -32,6 +32,7 @@ from noahmp_tpu_torch.kernels import column
 from noahmp_tpu_torch.kernels._build import CSRC_DIR
 from noahmp_tpu_torch.options import fused_option_sets
 from noahmp_tpu_torch.params.gathered import gather_params
+from noahmp_tpu_torch.physics import flux as flux_physics
 
 DT = 900.0
 STEPS = 4
@@ -105,6 +106,28 @@ def _case(name):
 @pytest.mark.parametrize("name", ["uniform"] + sorted(REGIMES))
 def test_host_build_matches_plain_step(host_lib, params, name):
     hold_against_plain(host_lib, params, Options(), _case(name), STEPS)
+
+
+@pytest.mark.parametrize("name", ["uniform"] + sorted(REGIMES))
+def test_host_build_matches_plain_step_chen97_fixed_carry(host_lib, params,
+                                                          name, monkeypatch):
+    """``physics/flux.py:CHEN97_FIXED_CARRY`` on, ``opt_sfc = 2``: the
+    plan reads the switch when it is built and the kernels multiply the
+    carried conductances by the wind speed, as the plain step does; the
+    carried ``ch`` is not what the default gives."""
+    opts = Options(sfc=2)
+    case = _case(name)
+    static, forcing, state = to_device(case, "cpu")
+    g = gather_params(params, static.lutyp, static.sltyp, static.isc,
+                      static.slptyp)
+    default = host_step(host_lib, column.ColumnPlan(
+        g, opts, DT, static, need_cuda=False), forcing, state)[0].ch
+    monkeypatch.setattr(flux_physics, "CHEN97_FIXED_CARRY", True)
+    plan = column.ColumnPlan(g, opts, DT, static, need_cuda=False)
+    assert plan.consts.chen97_fixed_carry == plan.args.chen97_fixed_carry == 1
+    assert not torch.equal(host_step(host_lib, plan, forcing, state)[0].ch,
+                           default)
+    hold_against_plain(host_lib, params, opts, case, STEPS)
 
 
 def _opt_id(opts):

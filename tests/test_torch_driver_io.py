@@ -26,7 +26,7 @@ from noahmp_tpu.driver import solar as jsolar
 from noahmp_tpu import state as jstate
 
 from noahmp_tpu_torch.cases import conus_case
-from noahmp_tpu_torch.convert import tree_to_numpy
+from noahmp_tpu_torch.convert import tree_on_device, tree_to_numpy
 from noahmp_tpu_torch.driver import config as tconfig
 from noahmp_tpu_torch.driver import geo as tgeo
 from noahmp_tpu_torch.driver import io as tio
@@ -624,15 +624,16 @@ def test_output_writer_push_window_writes_means_and_snapshot(tmp_path):
 def test_containers_handed_to_the_step_are_contiguous(forcing_case):
     """On the card the fused step's plan refuses a leaf that is not
     contiguous: the domain (``zsoil`` is a broadcast view on the host),
-    the init State and a provider's Forcing come out of ``_on_device``
+    the init State and a provider's Forcing come out of
+    ``convert.tree_on_device``
     contiguous, with the host's values."""
     cfg, tff, _jff = _providers(forcing_case, prefetch=False)
     host = tio._load_domain_host(cfg.constfile)
     assert host.zsoil.strides[0] == 0
-    static = trun._on_device(tio.Static, host, "cpu")
-    forcing = trun._on_device(Forcing, tff(cfg.begdatetime), "cpu")
-    state = trun._on_device(State, tio.load_init(cfg.initfile, 24, "cpu"),
-                            "cpu")
+    static = tree_on_device(tio.Static, host, "cpu")
+    forcing = tree_on_device(Forcing, tff(cfg.begdatetime), "cpu")
+    state = tree_on_device(State, tio.load_init(cfg.initfile, 24, "cpu"),
+                           "cpu")
     for tree, ref in ((static, host), (forcing, tff(cfg.begdatetime)),
                       (state, None)):
         for name, leaf in zip(tree._fields, tree):
@@ -641,5 +642,5 @@ def test_containers_handed_to_the_step_are_contiguous(forcing_case):
                 np.testing.assert_array_equal(leaf.numpy(),
                                               getattr(ref, name))
     with pytest.raises(TypeError, match="float64"):
-        trun._on_device(tio.Static, host._replace(
+        tree_on_device(tio.Static, host._replace(
             lat=host.lat.astype(np.float64)), "cpu")

@@ -16,7 +16,8 @@ from noahmp_tpu_torch.state import init_state, init_static
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DRIVER_MODULES = ("io", "run", "cli", "merge", "geo", "config", "netcdf",
-                  "solar")
+                  "solar", "multihost")
+DIST_MODULES = ("mesh", "checkpoint")
 
 
 def _submodules():
@@ -32,6 +33,8 @@ def test_fresh_interpreter_imports_no_jax():
     assert "noahmp_tpu_torch.utils" in mods
     for name in DRIVER_MODULES:
         assert f"noahmp_tpu_torch.driver.{name}" in mods
+    for name in DIST_MODULES:
+        assert f"noahmp_tpu_torch.dist.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -45,6 +48,49 @@ def test_fresh_interpreter_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_utils_reachable_from_the_package():
+    """``noahmp_tpu_torch.utils`` after ``import noahmp_tpu_torch``, as
+    ``noahmp_tpu.utils`` is in the JAX package (a fresh interpreter: no
+    other import may have loaded the submodule first)."""
+    code = ("import noahmp_tpu_torch as p\n"
+            "assert 'utils' in p.__all__\n"
+            "print(p.utils.ConservationError.__name__)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ConservationError"
+
+
+def test_console_scripts_declared():
+    """pyproject.toml declares the port's CLI beside the JAX package's,
+    and the function it names exists."""
+    import tomllib
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
+        scripts = tomllib.load(fh)["project"]["scripts"]
+    assert scripts["noahmp-tpu"] == "noahmp_tpu.driver.cli:main"
+    assert scripts["noahmp-tpu-torch"] == "noahmp_tpu_torch.driver.cli:main"
+    from noahmp_tpu_torch.driver import cli
+    assert callable(cli.main)
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "multihost.main"])
+def test_dist_default_device_is_the_card(entry, tmp_path):
+    """dist's entry points run on the card unless asked for the CPU:
+    without one they raise before they make any process group."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    import torch.distributed as dist
+    from noahmp_tpu_torch.dist.mesh import make_mesh
+    from noahmp_tpu_torch.driver import multihost
+    calls = {"make_mesh": make_mesh,
+             "multihost.main": lambda: multihost.main(
+                 [str(tmp_path / "case.nml")])}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    assert not dist.is_initialized()
 
 
 def test_sources_name_no_jax_import():
