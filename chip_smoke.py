@@ -29,7 +29,11 @@ or not by what the plain step does under a last-bit change.  On the same
 case the land-point axis over ``torch.distributed`` ranks: a one-rank
 NCCL mesh through ``run_offline(mesh=...)``, and two gloo ranks through
 ``driver.multihost`` sharing the one card, plain and strict, each held
-bit for bit against the run in one process.
+bit for bit against the run in one process.  Last both steps against
+the serial C++ reference column (``noahmp_tpu_torch.native``, built with
+``g++`` on the host), each step from the card's State, under the limits
+of ``tests/test_golden_native.py``, and that reference's own rate on
+this host beside the card's.
 
 Each phase prints one JSON line.  The line before the last two is
 ``{"kernels": [...]}``; then the card's name and power limit; the last
@@ -78,13 +82,16 @@ import torch
 
 from noahmp_tpu_torch import (STRICT_SENTINEL, Options, load_params,
                               make_chunk_step, make_fused_step, make_simulate,
-                              make_step, simulate, utils)
+                              make_step, native, simulate, utils)
 from noahmp_tpu_torch.cases import (CARBON_BAR, CARBON_POOLS, FLUX_BAR,
-                                    FLUX_CEILING, REGIMES, STATE_BAR,
-                                    STATE_CEILING, bar_ratio, carbon_ratios,
-                                    conus_case, forcing_sequence, hetero_case,
-                                    point_ratios, run_ratio, scaled_err,
-                                    to_device, uniform_case)
+                                    FLUX_CEILING, FUZZ_CAP, FUZZ_COMBOS,
+                                    FUZZ_OUTLIER_FRAC, FUZZ_TIGHT, REGIMES,
+                                    STATE_BAR, STATE_CEILING, bar_ratio,
+                                    carbon_ratios, conus_case,
+                                    forcing_sequence,
+                                    fuzz_case, fuzz_forcing, fuzz_shares,
+                                    hetero_case, point_ratios, run_ratio,
+                                    scaled_err, to_device, uniform_case)
 from noahmp_tpu_torch.convert import tree_from_numpy, tree_to_numpy
 from noahmp_tpu_torch.driver import cli as driver_cli
 from noahmp_tpu_torch.driver import io as driver_io
@@ -146,6 +153,16 @@ DIST_WORLD = 2                      # dist_two_ranks: processes on the card
 DIST_PROCESS_TIMEOUT = 300          # seconds, a rank of dist_two_ranks
 DIST_GROUP_TIMEOUT = 120            # seconds a collective waits for a peer
 DIST_CORRUPT_HOUR = 1               # forcing file corrupt on rank 1's rows
+# native_oracle: the steps against the serial C++ reference column
+# (noahmp_tpu_torch.native, on the host), each step from the same State
+NATIVE_COPIES = 4096                # each of the ten fuzz columns, repeated
+NATIVE_FUZZ_STEPS = 24              # a FUZZ_COMBOS set through the fused step
+NATIVE_EAGER_STEPS = 6              # ... through the eager step, for
+NATIVE_EAGER_COMBOS = ("default", "dynveg2")    # these sets
+NATIVE_CONUS_STEPS = 12             # CONUS: from the init State, a day later
+NATIVE_BENCH_STEPS = 5              # bench_native's timed steps
+FUZZ_SEED = 42                      # the weather's draws
+NATIVE_LISTED = 8                   # outliers named a step
 RESYNC_STEPS = 3    # offline_kernel_agreement: from the init State and
                     # from the last restart of offline_case, each
 # Two implementations of the step that differ in the last bit part
@@ -2054,6 +2071,21 @@ def nudged(t, seed):
     return torch.from_numpy(y.astype(np.float32)).to(t.device)
 
 
+def rounding_variants(forcing, state, draws=ONE_ULP_DRAWS):
+    """The changes the model cannot tell from rounding, as (canopy exit
+    threshold, Forcing, State): the exit moved by each of EXIT_VARIANTS,
+    then tv, tg and every Forcing leaf moved by one ulp (``draws``
+    draws)."""
+    for e in EXIT_VARIANTS:
+        yield flux_physics.DTV_EXIT * (1.0 + e), forcing, state
+    for seed in range(SEED, SEED + draws):
+        yield (flux_physics.DTV_EXIT,
+               Forcing(*[nudged(x, seed + 2 + k)
+                         for k, x in enumerate(forcing)]),
+               state._replace(tv=nudged(state.tv, seed),
+                              tg=nudged(state.tg, seed + 1)))
+
+
 def judge_resynced(plain, forcing, state, ref, got, lutyp,
                    draws=ONE_ULP_DRAWS, also=()):
     """One step from the same State: ``ref`` = plain(forcing, state),
@@ -2069,18 +2101,10 @@ def judge_resynced(plain, forcing, state, ref, got, lutyp,
     best = ratio[outside]
     for other in also:
         best = torch.minimum(best, point_step_ratios(other, got)[0][outside])
-    variants = [(e, None) for e in EXIT_VARIANTS] + [
-        (0.0, SEED + d) for d in range(draws)]
-    for e, seed in variants:
+    for threshold, drive, start in rounding_variants(forcing, state, draws):
         if not bool((best > 1.0).any()):
             break
-        start, drive = state, forcing
-        if seed is not None:
-            start = state._replace(tv=nudged(state.tv, seed),
-                                   tg=nudged(state.tg, seed + 1))
-            drive = Forcing(*[nudged(x, seed + 2 + k)
-                              for k, x in enumerate(forcing)])
-        with canopy_exit(flux_physics.DTV_EXIT * (1.0 + e)):
+        with canopy_exit(threshold):
             alt = plain(drive, start)
         best = torch.minimum(best, point_step_ratios(alt, got)[0][outside])
     unexplained = outside[best > 1.0].cpu().numpy()
@@ -2101,6 +2125,7 @@ def judge_resynced(plain, forcing, state, ref, got, lutyp,
     return {"points_outside": int(outside.numel()),
             "explained": int(outside.numel() - len(unexplained)),
             "unexplained": len(unexplained),
+            "unexplained_points": unexplained.tolist(),
             "worst_ratio": float(ratio.max()),
             "most_outside_in": max(set(leaves), key=leaves.count,
                                    default=None),
@@ -2344,6 +2369,290 @@ def phase_offline_cpu_agreement(device, n, hours, work, out_hours=3):
               "float64 step on the CPU or column_plain on the card; "
               "float32_vs_float64_on_the_cpu and kernel_vs_plain_on_the_card:"
               " the points outside the bars between those two pairs")
+
+
+def oracle_step(step, got, ref, lutyp, explain=None):
+    """One step from the same State: ``got`` (the step under test) and
+    ``ref`` (the oracle's) as {State field: numpy leaf}.  The point-steps
+    beyond FUZZ_TIGHT (outliers), those beyond FUZZ_CAP or whose nsnow
+    changed (``crossed``), with the fields and land-use classes of the
+    outliers; ``explain(points)`` labels each crossing (``attribute``;
+    None: not explained)."""
+    share, over_cap, nsnow, by_field = fuzz_shares(got, ref)
+    out = np.flatnonzero(share > 1.0)
+    crossed = np.flatnonzero(over_cap | nsnow)
+    labels = (explain(crossed) if explain is not None and crossed.size
+              else [None] * crossed.size)
+    return {"step": step, "points": int(share.size),
+            "outliers": int(out.size),
+            "max_share_of_tight": float(share.max()) if share.size else 0.0,
+            "outlier_fields": sorted(k for k, v in by_field.items()
+                                     if (v[out] > 1.0).any()),
+            "outlier_land_use": sorted({int(x) for x in lutyp[out]}),
+            "outliers_at": [
+                f"point {int(p)}, land use {int(lutyp[p])}, "
+                + ", ".join(f"{k} {float(v[p]):.3g}" for k, v in
+                            by_field.items() if v[p] > 1.0)
+                for p in out[np.argsort(-share[out])][:NATIVE_LISTED]],
+            "crossed": [
+                f"point {int(p)}, land use {int(lutyp[p])}, "
+                + ("nsnow changed, " if nsnow[p] else "")
+                + ", ".join(f"{k} {float(v[p]):.3g}" for k, v in
+                            by_field.items() if v[p] * FUZZ_TIGHT[k]
+                            > FUZZ_CAP[k])
+                + f", {label or 'not explained'}"
+                for p, label in zip(crossed, labels)],
+            "crossings_by_label": {
+                str(label): labels.count(label) for label in set(labels)},
+            "unexplained_crossings": labels.count(None)}
+
+
+def check_oracle(label, reports):
+    """test_golden_native.py's limits over the steps of one comparison:
+    no point-step beyond FUZZ_CAP or with nsnow changed that
+    ``attribute`` does not explain, at most
+    FUZZ_OUTLIER_FRAC of the point-steps beyond FUZZ_TIGHT (crossings
+    included).  Returns the summary the phase prints."""
+    for r in reports:
+        if r["unexplained_crossings"]:
+            raise AssertionError(
+                f"{label}, step {r['step']}: beyond FUZZ_CAP {FUZZ_CAP} or "
+                f"nsnow changed: {r['crossed'][:NATIVE_LISTED]}")
+    points = sum(r["points"] for r in reports)
+    outliers = sum(r["outliers"] for r in reports)
+    summary = {
+        "steps": len(reports), "point_steps": points, "outliers": outliers,
+        "outliers_by_step": [r["outliers"] for r in reports],
+        "max_share_of_tight": max(r["max_share_of_tight"] for r in reports),
+        "outlier_fields": sorted({f for r in reports
+                                  for f in r["outlier_fields"]}),
+        "outlier_land_use": sorted({c for r in reports
+                                    for c in r["outlier_land_use"]}),
+        "outliers_at": [f"step {r['step']}: {at}" for r in reports
+                        for at in r["outliers_at"]][:NATIVE_LISTED],
+        "crossings": [f"step {r['step']}: {at}" for r in reports
+                      for at in r["crossed"]][:NATIVE_LISTED],
+        "crossings_by_label": {
+            label: sum(r["crossings_by_label"].get(label, 0)
+                       for r in reports)
+            for label in sorted({k for r in reports
+                                 for k in r["crossings_by_label"]})}}
+    if outliers > FUZZ_OUTLIER_FRAC * points:
+        raise AssertionError(
+            f"{label}: {outliers} of {points} point-steps beyond FUZZ_TIGHT "
+            f"{FUZZ_TIGHT} (at most {FUZZ_OUTLIER_FRAC:.1%}): "
+            f"{summary['outliers_at']}")
+    return summary
+
+
+def attribute(params_cpu, opts, dt, static, forcing, state, got, ref,
+              points):
+    """Whose is each crossing at ``points`` (beyond FUZZ_CAP of the
+    oracle's State ``ref``, or nsnow changed), from the same State and
+    Forcing on the CPU: "the model's" when column_plain gives the answer
+    of the step under test (``got``) there, within FUZZ_TIGHT and with
+    its nsnow: the model parts from the oracle at that point, and the CPU
+    tests hold column_plain to the JAX package; "rounding" when
+    column_plain with the State and Forcing moved by one ulp
+    (ONE_ULP_DRAWS draws) or the canopy exit moved (EXIT_VARIANTS), as
+    judge_resynced moves them, comes within FUZZ_CAP of the oracle with
+    its nsnow: the model gives either answer under a change it cannot
+    tell from rounding; None: not explained.  One label a point."""
+    rows = torch.as_tensor(points, dtype=torch.long)
+
+    def sub(tree):
+        return type(tree)(*[x.cpu()[rows].contiguous() for x in tree])
+    static, forcing, state = sub(static), sub(forcing), sub(state)
+    fields = list(FUZZ_TIGHT) + ["nsnow"]
+    fused = make_fused_step(params_cpu, opts, dt, static, device="cpu")
+
+    def plain(drive, start):
+        out = fused(None, drive, start)[0]
+        return {name: getattr(out, name).numpy() for name in fields}
+    share, _cap, nsnow, _ = fuzz_shares(plain(forcing, state),
+                                        {k: got[k][points] for k in fields})
+    labels = ["the model's" if ok else None
+              for ok in (share <= 1.0) & ~nsnow]
+    want = {k: ref[k][points] for k in fields}
+    for threshold, drive, start in rounding_variants(forcing, state):
+        if all(labels):
+            break
+        with canopy_exit(threshold):
+            _share, cap, nsnow, _ = fuzz_shares(plain(drive, start), want)
+        labels = [label or ("rounding" if ok else None)
+                  for label, ok in zip(labels, ~cap & ~nsnow)]
+    return labels
+
+
+def against_oracle(step, static, forcings, state, opts, dt, lutyp, params,
+                   params_cpu):
+    """``step(forcing, state)`` along its own trajectory, each step also
+    taken by the oracle (noahmp_step_batch, on the host) from the same
+    State, copied from ``state``'s device.  ``forcings``: one Forcing
+    dict of numpy leaves a step (an iterable).  Returns the reports of
+    ``oracle_step``, one a step."""
+    device = state.tg.device
+    co = native.opts_to_c(opts)
+    cp = native.params_to_array(params, static)
+    reports = []
+    for k, f_np in enumerate(forcings):
+        forcing = tree_from_numpy(Forcing, f_np, device)
+        cs = native.state_to_array(state)
+        cx = np.zeros(len(cs), native.FLUX_DTYPE)
+        native.step_batch(co, cp, native.forcing_to_array(Forcing(**f_np)),
+                          cs, cx, dt)
+        new = step(forcing, state)[0]
+        got = {name: getattr(new, name).cpu().numpy()
+               for name in list(FUZZ_TIGHT) + ["nsnow"]}
+        reports.append(oracle_step(
+            k, got, cs, lutyp, lambda points, f=forcing, s=state: attribute(
+                params_cpu, opts, dt, static, f, s, got, cs, points)))
+        state = new
+    return reports
+
+
+def host_cpu():
+    """The host CPU's model name (/proc/cpuinfo: with its vendor, family
+    and model numbers, which a virtual machine may report where it hides
+    the name) and logical cores."""
+    info = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                key, _, value = line.partition(":")
+                if not line.strip():
+                    break
+                info.setdefault(key.strip(), value.strip())
+    model = (f"{info.get('model name')} ({info.get('vendor_id')}, family "
+             f"{info.get('cpu family')}, model {info.get('model')})")
+    return model, os.cpu_count()
+
+
+def phase_native_oracle(params, device, work, free_running_ms,
+                        copies=NATIVE_COPIES, fuzz_steps=NATIVE_FUZZ_STEPS,
+                        eager_steps=NATIVE_EAGER_STEPS,
+                        n_conus=N_OFFLINE_CPU, conus_steps=NATIVE_CONUS_STEPS,
+                        day_hours=24, n_bench=N_POINTS):
+    """The steps against the serial C++ reference column
+    (noahmp_tpu_torch.native, built with g++ on the host): (a) the resync
+    fuzz of test_golden_native.py, its ten columns ``copies`` times over
+    with per-point weather, every FUZZ_COMBOS set through the fused step
+    and NATIVE_EAGER_COMBOS through the eager step, each step of the
+    card's trajectory also taken by the oracle from the card's State;
+    (b) the generated CONUS case at ``n_conus`` points, exact forcing,
+    from the init State and from the card's State ``day_hours`` later;
+    both held to FUZZ_TIGHT and FUZZ_OUTLIER_FRAC, each point-step beyond
+    FUZZ_CAP or with nsnow changed explained by ``attribute``; (c) the
+    oracle's own rate (bench_native) on the uniform case at ``n_bench``
+    points, one thread and all, beside the fused step's free-running
+    rate (phase timing).  Launch counts zeroed before (a)
+    and read after (b)."""
+    t0 = time.perf_counter()
+    model, cores = host_cpu()
+    params_cpu = load_params("USGS", "STAS", device="cpu")
+    native.load()
+    threaded = native.openmp()
+    native.set_threads(cores)
+    column.reset_launches()
+    reset_launches()
+
+    # (a) the resync fuzz
+    fuzz = {}
+    static_np, state_np = fuzz_case(copies)
+    static = tree_from_numpy(Static, static_np, device)
+    lutyp = static_np["lutyp"]
+    n = lutyp.shape[0]
+    for path, steps in (("column_cuda", fuzz_steps),
+                        ("make_step", eager_steps)):
+        for name, opts in FUZZ_COMBOS:
+            if path == "column_cuda":
+                step = make_fused_step(params, opts, DT, static,
+                                       device=device)
+                take = lambda f, s, step=step: step(None, f, s)  # noqa: E731
+            elif name in NATIVE_EAGER_COMBOS:
+                step = make_step(params, opts, DT, device=device)
+                take = lambda f, s, step=step: step(static, f, s)  # noqa: E731
+            else:
+                continue
+            rng = np.random.default_rng(FUZZ_SEED)
+            reports = against_oracle(
+                take, static, (fuzz_forcing(rng, n) for _ in range(steps)),
+                tree_from_numpy(State, state_np, device), opts, DT, lutyp,
+                params, params_cpu)
+            fuzz[f"{path} {name}"] = check_oracle(f"{path} {name}", reports)
+
+    # (b) the CONUS case, from the init State and a day later
+    case = write_case(n_conus, 2, os.path.join(work, "native"))
+    cfg = offline_cfg(case, "native", day_hours)
+    later = driver_run.run_offline(cfg, verbose=False, device=device)[0]
+    c_static = driver_io.load_domain(cfg.constfile, device)
+    c_host = driver_io.static_to_host(c_static)
+    fused = make_fused_step(params, cfg.options, cfg.dt, c_static,
+                            device=device)
+    conus = {}
+    for label, begin, state in (
+            ("from the init State", cfg.begdatetime,
+             driver_io.load_init(cfg.initfile, n_conus, device)),
+            (f"{day_hours} hours later", cfg.enddatetime, later)):
+        forcings = (file_forcing(cfg, c_host, begin + k * cfg.timestep,
+                                 "cpu")._asdict()
+                    for k in range(conus_steps))
+        reports = against_oracle(
+            lambda f, s: fused(None, f, s), c_static,
+            ({k: v.numpy() for k, v in f.items()} for f in forcings),
+            State(*[x.contiguous() for x in state]), cfg.options, cfg.dt,
+            c_host.lutyp, params, params_cpu)
+        conus[label] = check_oracle(f"column_cuda CONUS {label}", reports)
+    launches = {"column": column_cuda.launches,
+                "thomas": dict(thomas_cuda.launches_by_rows)}
+    shutil.rmtree(case)
+
+    # (c) the oracle's rate on the card's host
+    bench = to_device(uniform_case(n_bench), device)
+    rate_1 = native.bench_native(params, Options(), *bench,
+                                 steps=NATIVE_BENCH_STEPS, threads=1)
+    rate_all = (native.bench_native(params, Options(), *bench,
+                                    steps=NATIVE_BENCH_STEPS, threads=cores)
+                if threaded else None)
+    card_rate = (n_bench / (free_running_ms * 1e-3) if free_running_ms
+                 else None)
+    fuzz_all = list(fuzz.values()) + list(conus.values())
+    out = {
+        "launches": launches,
+        "point_steps": sum(r["point_steps"] for r in fuzz_all),
+        "outliers": sum(r["outliers"] for r in fuzz_all),
+        "max_share_of_tight": max(r["max_share_of_tight"] for r in fuzz_all),
+        "rate_1_thread": rate_1, "rate_all_threads": rate_all,
+        "threads": cores if threaded else 1}
+    emit("native_oracle", n_fuzz=n, fuzz_steps=fuzz_steps,
+         eager_steps=eager_steps, n_conus=n_conus, conus_steps=conus_steps,
+         limits={"tight": FUZZ_TIGHT, "cap": FUZZ_CAP,
+                 "outlier_frac": FUZZ_OUTLIER_FRAC},
+         fuzz=fuzz, conus=conus, launches=launches,
+         point_steps=out["point_steps"], outliers=out["outliers"],
+         max_share_of_tight=out["max_share_of_tight"],
+         oracle={"library": os.path.basename(native.library_path()),
+                 "flags": " ".join(native.CXX_FLAGS), "openmp": threaded,
+                 "n": n_bench, "timed_steps": NATIVE_BENCH_STEPS,
+                 "point_steps_per_s_1_thread": rate_1,
+                 "point_steps_per_s_all_threads": rate_all,
+                 "threads": out["threads"]},
+         column_cuda={"free_running_ms_per_step": free_running_ms,
+                      "point_steps_per_s": card_rate,
+                      "over_1_thread": (card_rate / rate_1
+                                        if card_rate else None),
+                      "over_all_threads": (card_rate / rate_all
+                                           if card_rate and rate_all
+                                           else None)},
+         host_cpu=model, logical_cores=cores,
+         card=nvidia_smi_line() if device.type == "cuda" else None,
+         seconds=time.perf_counter() - t0,
+         note="each step of the card's trajectory also taken by the oracle "
+              "from the card's State; outliers: point-steps beyond "
+              "FUZZ_TIGHT in any of its fields (share: |card - oracle| "
+              "over that field's FUZZ_TIGHT); oracle rates: bench_native, "
+              "host clock, one warm call then the timed steps in place")
+    return out
 
 
 def wall_ms_in_turns(steps, states, reps, warmup):
@@ -2788,6 +3097,29 @@ def host_column_library(build_dir):
     return lib
 
 
+def oracle_witness(params, cfg, static, forcing, state, plain, host, point):
+    """The serial C++ reference column at ``point`` from ``state`` and
+    ``forcing``, held against two other steps' (State, Flux) there: each
+    State field's |oracle - other| over FUZZ_TIGHT, fsh, and which of the
+    two it comes closer to."""
+    sd, fl = native.step_column(params, cfg.options, static, forcing, state,
+                                point, cfg.dt)
+    out = {"point": int(point), "land_use": int(static.lutyp[point])}
+    worst = {}
+    for label, (s_new, flux) in (("column_plain", plain), ("host_build",
+                                                           host)):
+        shares = {name: float(np.max(np.abs(
+            np.asarray(sd[name], np.float64)
+            - getattr(s_new, name)[point].double().numpy())) / tight)
+            for name, tight in FUZZ_TIGHT.items()}
+        out[f"share_of_tight_{label}"] = shares
+        out[f"fsh_{label}"] = float(flux.fsh[point])
+        worst[label] = max(shares.values())
+    out["fsh_oracle"] = fl["fsh"]
+    out["sides_with"] = min(worst, key=worst.get)
+    return out
+
+
 def cpu_conditioning(n=N_OFFLINE_CPU, steps=12, free_draws=3):
     """Where the figures behind EXIT_VARIANTS, ONE_ULP_DRAWS,
     UNEXPLAINED_* and FREE_RUN_* come from, on the CPU, no card: the
@@ -2804,9 +3136,9 @@ def cpu_conditioning(n=N_OFFLINE_CPU, steps=12, free_draws=3):
         cfg = offline_cfg(case, "x", OFFLINE_CPU_HOURS)
         static = driver_io.load_domain(cfg.constfile, "cpu")
         static_host = driver_io.static_to_host(static)
-        fused = make_fused_step(load_params(cfg.veg_scheme, cfg.soil_scheme,
-                                            device="cpu"), cfg.options,
-                                cfg.dt, static, device="cpu")
+        params = load_params(cfg.veg_scheme, cfg.soil_scheme, device="cpu")
+        fused = make_fused_step(params, cfg.options, cfg.dt, static,
+                                device="cpu")
 
         def plain(forcing, state):
             return fused(None, forcing, state)
@@ -2826,7 +3158,7 @@ def cpu_conditioning(n=N_OFFLINE_CPU, steps=12, free_draws=3):
              most_outside_in=sorted(counts, key=counts.get)[-4:],
              note="column_plain against itself, State.tv moved by one ulp, "
                   "the step's bars per point")
-        by_exit, full = [], []
+        by_exit, full, witnessed = [], [], []
         for k in range(steps):
             forcing = file_forcing(cfg, static_host,
                                    cfg.begdatetime + k * cfg.timestep, "cpu")
@@ -2840,12 +3172,21 @@ def cpu_conditioning(n=N_OFFLINE_CPU, steps=12, free_draws=3):
                 plain, forcing, state, ref, got, lutyp, draws=0)})
             full.append({"step": k, **judge_resynced(
                 plain, forcing, state, ref, got, lutyp)})
+            witnessed += [{"step": k, **oracle_witness(
+                params, cfg, static, forcing, state, ref, got, point)}
+                for point in full[-1]["unexplained_points"]]
             state = ref[0]
         emit("conditioning_host_build", n=n, steps=steps,
              exit_variants_alone=resynced_summary(by_exit),
              with_one_ulp_draws=resynced_summary(full),
              note="the host build of the kernels (csrc/column_host.cpp) "
                   "against column_plain, each step from column_plain's State")
+        emit("conditioning_oracle", points=witnessed,
+             note="at each point the host build leaves unexplained, the "
+                  "serial C++ reference column from the same State and "
+                  "Forcing: |oracle - column_plain| and |oracle - host "
+                  "build| over FUZZ_TIGHT by State field, and fsh (the "
+                  "oracle has no shg)")
         ref = driver_run.run_offline(cfg, verbose=False, device="cpu")
         init = driver_io.load_init(cfg.initfile, n, "cpu")
         draws = []
@@ -2895,6 +3236,9 @@ def cpu_rehearsal():
         shutil.rmtree(case)
         phase_offline_large(device, 64, 2, work, None, out_hours=1)
         phase_offline_cpu_agreement(device, 64, 2, work, out_hours=1)
+        phase_native_oracle(params, device, work, None, copies=2,
+                            fuzz_steps=2, eager_steps=1, n_conus=4096,
+                            conus_steps=2, day_hours=2, n_bench=64)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("rehearsal_carbon_operations", **carbon_operations(params))
@@ -2978,6 +3322,10 @@ def main():
                                             timing["ms_large"])
         phase_offline_cpu_agreement(device, N_OFFLINE_CPU, OFFLINE_CPU_HOURS,
                                     work)
+        # both steps against the serial C++ reference column, and the
+        # reference's own rate on this host
+        oracle = phase_native_oracle(params, device, work,
+                                     timing["free_running_ms"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if args.profile:
@@ -2990,6 +3338,7 @@ def main():
         entry["launches"] = launches[rows]
         entry["launches_carbon_path"] = carbon_launches["thomas"][rows]
         entry["launches_chunk_path"] = chunk_launches["thomas"][rows]
+        entry["launches_native_path"] = oracle["launches"]["thomas"][rows]
     entries.append({
         "name": "column_cuda", "route": "cuda",
         "source": "noahmp_tpu_torch/csrc/column.cu",
@@ -2999,6 +3348,7 @@ def main():
         "launches_chunk_path": chunk_launches["column"],
         "launches_offline_path": offline_launches["column"],
         "launches_dist_path": dist_one["launches"],
+        "launches_native_path": oracle["launches"]["column"],
         "launches_per_step": column.device_launches(N_POINTS),
         "max_abs_err": worst[0],
         "max_abs_err_at": f"{worst[1]}: {worst[2]}",
@@ -3028,6 +3378,12 @@ def main():
         "dist_one_rank_ms_per_step": dist_one["ms_per_step"],
         "dist_without_mesh_ms_per_step": dist_one["plain_ms_per_step"],
         "dist_two_ranks_one_card_ms_per_step": dist_two["ms_per_step"],
+        "native_point_steps_per_s_1_thread": oracle["rate_1_thread"],
+        "native_point_steps_per_s_all_threads": oracle["rate_all_threads"],
+        "native_threads": oracle["threads"],
+        "native_outliers": oracle["outliers"],
+        "native_point_steps": oracle["point_steps"],
+        "native_max_share_of_tight": oracle["max_share_of_tight"],
         "step_wall_ms": timing["wall_ms"],
         "host_share_ms": timing["wall_ms"] - timing["ms"],
         "host_enqueue_ms": timing["host_enqueue_ms"],
@@ -3067,6 +3423,21 @@ def main():
                   f"{DIST_HOURS} hours of that case, a one-rank NCCL mesh, "
                   "no mesh, and two gloo ranks sharing the one card and "
                   "host (rank 0's loop; no scaling figure); "
+                  "native_*: phase native_oracle, the serial C++ reference "
+                  "column (g++ -O2 -fopenmp, on the host): "
+                  "native_point_steps_per_s_*: bench_native on the uniform "
+                  f"case at n = {N_POINTS}, {NATIVE_BENCH_STEPS} timed steps "
+                  "after a warm one, host clock, at 1 and native_threads "
+                  "OpenMP threads (null: built without OpenMP); "
+                  "native_outliers of native_point_steps: the card's steps "
+                  "(column_cuda on 8 option sets x "
+                  f"{NATIVE_FUZZ_STEPS} steps x {10 * NATIVE_COPIES} fuzz "
+                  f"points and 2 x {NATIVE_CONUS_STEPS} steps x "
+                  f"{N_OFFLINE_CPU} CONUS points; make_step on 2 sets x "
+                  f"{NATIVE_EAGER_STEPS} steps x {10 * NATIVE_COPIES}), each "
+                  "from the same State as the oracle's, beyond FUZZ_TIGHT; "
+                  "native_max_share_of_tight: the worst |card - oracle| "
+                  "over FUZZ_TIGHT; "
                   "stages[].ms: one launch alone, back to back with itself; "
                   "plain_ms: summed device time of the eager step's kernels "
                   "(torch.profiler); plain_wall_ms and step_wall_ms: host "
@@ -3080,7 +3451,8 @@ def main():
                   "column_plain",
     })
     for entry in entries:
-        keys = ["launches", "launches_carbon_path", "launches_chunk_path"]
+        keys = ["launches", "launches_carbon_path", "launches_chunk_path",
+                "launches_native_path"]
         if entry["name"] == "column_cuda":
             # the offline and dist paths run the fused step only: no
             # Thomas launch

@@ -15,6 +15,10 @@ And one file-driven case for the offline driver: ``conus_case`` writes
 a CONUS-flavoured domain, init and hourly forcing files and a namelist
 (the port's copy of ``examples/make_case.py:conus``, the same arrays
 from the same seed).
+
+And the resync fuzz that the serial C++ oracle (``native``) holds the
+port to, with its limits: ``fuzz_case``, ``fuzz_forcing``,
+``FUZZ_COMBOS``, ``fuzz_shares``.
 """
 
 import datetime
@@ -23,6 +27,7 @@ import os
 import numpy as np
 
 from .convert import tree_from_numpy, tree_to_numpy
+from .options import Options
 from .state import State, Static, Forcing, init_state, init_static
 
 REGIMES = {
@@ -406,3 +411,105 @@ def conus_case(n, seed=0, days=1, outdir="conus", start=None, fmt="nc"):
 /
 """)
     return outdir
+
+
+# The resync fuzz of tests/test_golden_native.py:248-292: ten columns
+# (urban, barren, tundra and clay soils; a glacier column pre-loaded
+# near the 2000 mm overflow, a lake column) under per-point weather drawn
+# afresh every step, each step taken by the oracle from the State the
+# step under test started from.  Limits (that file's, calibrated on the
+# JAX package, 200-500 steps over three seeds): every column-step within
+# FUZZ_CAP, at most FUZZ_OUTLIER_FRAC of them beyond FUZZ_TIGHT (rare
+# Newton iteration-count flips at knife-edge states: 3 in 4,000
+# column-steps there), the layer count equal everywhere.
+FUZZ_LUTYP = (7, 14, 19, 11, 5, 2, 1, 21, 24, 16)
+FUZZ_SLTYP = (6, 4, 1, 8, 9, 3, 12, 5, 1, 6)
+FUZZ_ISC = (4, 2, 7, 5, 1, 3, 6, 8, 1, 4)
+FUZZ_IST = (1, 1, 1, 1, 1, 1, 1, 1, 1, 2)
+GLACIER_COL = 8
+
+FUZZ_COMBOS = (
+    ("default", Options()),
+    ("frz2_tbot1", Options(frz=2, tbot=1)),
+    ("jarvis_run3_inf2", Options(crs=2, run=3, inf=2)),
+    ("dynveg2", Options(veg=2, crs=1)),
+    ("snf2_stc2", Options(snf=2, stc=2)),
+    ("btr3_run4_alb1_sfc2", Options(btr=3, run=4, alb=1, sfc=2)),
+    ("rad2_run2", Options(rad=2, run=2)),
+    ("rad3_frz2_snf3", Options(rad=3, frz=2, snf=3)),
+)
+
+FUZZ_TIGHT = dict(tg=0.1, tv=0.3, swc=1e-4, sneqv=0.05, canliq=0.02)
+FUZZ_CAP = dict(tg=4.0, tv=2.5, swc=1e-3, sneqv=0.5, canliq=0.25)
+FUZZ_OUTLIER_FRAC = 0.005
+
+
+def fuzz_case(copies=1):
+    """(static, state) dicts of numpy leaves: the ten fuzz columns, point
+    p being column p % 10, ``copies`` times over.  The glacier column
+    starts as a cold, fully layered 4 m pack just under the 2000 mm
+    overflow (test_golden_native.py:313-337)."""
+    n = len(FUZZ_LUTYP)
+    static = tree_to_numpy(init_static(n, device="cpu"))
+    for name, cols in (("lutyp", FUZZ_LUTYP), ("sltyp", FUZZ_SLTYP),
+                       ("isc", FUZZ_ISC), ("ist", FUZZ_IST)):
+        static[name] = np.asarray(cols, np.int32)
+    state = tree_to_numpy(init_state(n, device="cpu", tg=278.0, tv=278.0,
+                                     stc_soil=278.0))
+    g = GLACIER_COL
+    gl_dz = np.array([0.05, 0.2, 3.75], np.float32)
+    gl_ice = np.array([25.0, 100.0, 1870.0], np.float32)  # ~500 kg/m3
+    gl_z = -np.cumsum(np.concatenate(
+        [gl_dz, np.diff(np.concatenate([[0.0], -static["zsoil"][g]]))]))
+    state["nsnow"][g] = 3
+    state["snice"][g] = gl_ice
+    state["snliq"][g] = 0.0
+    state["ficeold"][g] = 1.0
+    state["zsnso"][g] = gl_z.astype(np.float32)
+    state["stc"][g] = np.concatenate([np.full(3, 266.0), np.full(4, 268.0)])
+    state["sneqv"][g] = state["sneqvo"][g] = gl_ice.sum()
+    state["snowh"][g] = gl_dz.sum()
+    state["tg"][g] = state["tv"][g] = 266.0
+
+    def tile(leaves):
+        return {k: np.ascontiguousarray(np.tile(
+            v, (copies,) + (1,) * (v.ndim - 1))) for k, v in leaves.items()}
+    return tile(static), tile(state)
+
+
+def fuzz_forcing(rng, n):
+    """A Forcing dict of (n,) leaves: weather drawn per point as
+    test_golden_native.py:_fuzz_forcing draws it, day or night."""
+    day = rng.random(n) < 0.5
+    out = _forcing(n)
+    out.update(
+        sfctmp=rng.uniform(250.0, 305.0, n).astype(np.float32),
+        uu=rng.uniform(0.5, 12.0, n).astype(np.float32),
+        q2=rng.uniform(0.001, 0.012, n).astype(np.float32),
+        soldn=np.where(day, rng.uniform(100.0, 900.0, n),
+                       0.0).astype(np.float32),
+        lwdn=rng.uniform(200.0, 400.0, n).astype(np.float32),
+        prcp=rng.choice([0.0, 0.0002, 0.001, 0.004], n).astype(np.float32),
+        cosz=np.where(day, rng.uniform(0.1, 0.95, n),
+                      -0.2).astype(np.float32))
+    return out
+
+
+def fuzz_shares(got, ref):
+    """Per point, over two dicts of State leaves (numpy, the point axis
+    first) from the same step: the worst |got - ref| over FUZZ_TIGHT
+    across the five fields, whether any field is beyond FUZZ_CAP, whether
+    ``nsnow`` differs, and {field: |got - ref| over its FUZZ_TIGHT}.  A
+    NaN counts as beyond both."""
+    n = np.asarray(got["tg"]).shape[0]
+    by_field = {}
+    over_cap = np.zeros(n, bool)
+    for name, tight in FUZZ_TIGHT.items():
+        d = np.abs(np.asarray(got[name], np.float64)
+                   - np.asarray(ref[name], np.float64))
+        d = np.where(np.isnan(d), np.inf, d).reshape(n, -1).max(axis=1)
+        by_field[name] = d / tight
+        over_cap |= d > FUZZ_CAP[name]
+    share = np.max(np.stack(list(by_field.values())), axis=0)
+    nsnow = np.asarray(got["nsnow"]) != np.asarray(ref["nsnow"])
+    return share, over_cap, nsnow, by_field

@@ -304,3 +304,100 @@ def test_launch_ranks_ends_a_hung_rank(smoke, monkeypatch, tmp_path):
         smoke.launch_ranks(["case.nml"], timeout=3)
     assert len(started) == 2
     assert all(proc.poll() is not None for proc in started)
+
+
+def _oracle_states(n=1000):
+    """Two equal sets of the State fields native_oracle compares."""
+    rng = np.random.default_rng(0)
+    ref = {"tg": rng.uniform(260.0, 300.0, n), "tv": rng.uniform(
+               260.0, 300.0, n), "swc": rng.uniform(0.1, 0.4, (n, 4)),
+           "sneqv": rng.uniform(0.0, 50.0, n),
+           "canliq": rng.uniform(0.0, 1.0, n),
+           "nsnow": rng.integers(0, 4, n).astype(np.int32)}
+    return ref, {k: v.copy() for k, v in ref.items()}
+
+
+def _judge(smoke, got, ref, explain=None):
+    lutyp = np.full(got["tg"].shape[0], 7, np.int32)
+    return smoke.check_oracle("test", [smoke.oracle_step(0, got, ref, lutyp,
+                                                         explain)])
+
+
+def test_oracle_judge_fails_one_point_over_the_cap(smoke):
+    ref, got = _oracle_states()
+    assert _judge(smoke, got, ref)["outliers"] == 0
+    got["tg"][17] += 4.5                    # FUZZ_CAP tg = 4.0
+    with pytest.raises(AssertionError, match="beyond FUZZ_CAP.*point 17"):
+        _judge(smoke, got, ref)
+    ref, got = _oracle_states()
+    got["swc"][3, 2] += 2e-3                # a layer of a layer field
+    with pytest.raises(AssertionError, match="point 3"):
+        _judge(smoke, got, ref)
+
+
+def test_oracle_judge_fails_a_changed_layer_count(smoke):
+    ref, got = _oracle_states()
+    got["nsnow"][5] += 1
+    with pytest.raises(AssertionError, match="nsnow changed.*point 5"):
+        _judge(smoke, got, ref)
+
+
+@pytest.mark.parametrize("outliers, passes", [(5, True), (6, False)])
+def test_oracle_judge_allows_half_a_percent_beyond_tight(smoke, outliers,
+                                                         passes):
+    """0.5% of 1,000 point-steps beyond FUZZ_TIGHT passes, 0.6% fails."""
+    ref, got = _oracle_states()
+    got["tv"][:outliers] += 0.5             # FUZZ_TIGHT tv = 0.3, cap 2.5
+    if passes:
+        summary = _judge(smoke, got, ref)
+        assert summary["outliers"] == outliers
+        assert summary["outlier_fields"] == ["tv"]
+        assert summary["max_share_of_tight"] == pytest.approx(0.5 / 0.3)
+    else:
+        with pytest.raises(AssertionError, match="6 of 1000 point-steps"):
+            _judge(smoke, got, ref)
+
+
+def test_oracle_judge_passes_only_an_explained_crossing(smoke):
+    """A point-step beyond FUZZ_CAP passes only with a label from the
+    explainer; it still counts as an outlier."""
+    ref, got = _oracle_states()
+    got["tv"][40] += 7.4
+    asked = []
+
+    def explain(points):
+        asked.append(list(points))
+        return ["the model's"] * len(points)
+    summary = _judge(smoke, got, ref, explain)
+    assert asked == [[40]]
+    assert summary["outliers"] == 1
+    assert summary["crossings"] == ["step 0: point 40, land use 7, tv 24.7, "
+                                    "the model's"]
+    assert summary["crossings_by_label"] == {"the model's": 1}
+    with pytest.raises(AssertionError, match="point 40.*not explained"):
+        _judge(smoke, got, ref, lambda points: [None] * len(points))
+
+
+def test_attribute_names_whose_a_crossing_is(smoke):
+    """``attribute``: the plain step's own answer is the model's; an
+    answer 10 K of tv off with the oracle on the plain step's is
+    rounding when a variant lands near the oracle, and unexplained when
+    the oracle is 10 K off too."""
+    params = load_params(device="cpu")
+    static, forcing, state = to_device(hetero_case("warm_day", 8), "cpu")
+    new = make_fused_step(params, Options(), DT, static, device="cpu")(
+        None, forcing, state)[0]
+    fields = list(smoke.FUZZ_TIGHT) + ["nsnow"]
+    plain = {name: getattr(new, name).numpy().copy() for name in fields}
+    points = np.array([1, 6])
+
+    def labels(got, ref):
+        return smoke.attribute(params, Options(), DT, static, forcing,
+                               state, got, ref, points)
+    assert labels(plain, plain) == ["the model's", "the model's"]
+    off = {k: v.copy() for k, v in plain.items()}
+    off["tv"][6] += 10.0
+    assert labels(off, plain) == ["the model's", "rounding"]
+    oracle = {k: v.copy() for k, v in plain.items()}
+    oracle["tv"][6] -= 10.0
+    assert labels(off, oracle) == ["the model's", None]

@@ -35,6 +35,7 @@ def test_fresh_interpreter_imports_no_jax():
         assert f"noahmp_tpu_torch.driver.{name}" in mods
     for name in DIST_MODULES:
         assert f"noahmp_tpu_torch.dist.{name}" in mods
+    assert "noahmp_tpu_torch.native" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -104,6 +105,8 @@ def test_sources_name_no_jax_import():
             noahmp_tpu_torch.__file__)):
         files += [os.path.join(base, f) for f in names if f.endswith(".py")]
     assert len(files) > 20
+    assert os.path.join(os.path.dirname(noahmp_tpu_torch.__file__), "native",
+                        "__init__.py") in files
     for path in files:
         with open(path) as fh:
             assert not pat.search(fh.read()), path
@@ -112,12 +115,14 @@ def test_sources_name_no_jax_import():
 @pytest.mark.parametrize("entry", ["load_params", "init_state",
                                    "init_static", "make_step",
                                    "make_chunk_step", "make_simulate",
-                                   "simulate"])
+                                   "simulate", "native.state_from_array"])
 def test_default_device_is_the_card(entry):
     """device=None means CUDA: without a card every entry point raises
     instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
+    import numpy as np
+    from noahmp_tpu_torch import native
     calls = {
         "load_params": lambda: load_params(),
         "init_state": lambda: init_state(4),
@@ -131,6 +136,8 @@ def test_default_device_is_the_card(entry):
         "simulate": lambda: noahmp_tpu_torch.simulate(
             load_params(device="cpu"), Options(), 900.0,
             init_static(2, device="cpu"), None, init_state(2, device="cpu")),
+        "native.state_from_array": lambda: native.state_from_array(
+            np.zeros(2, native.STATE_DTYPE)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
@@ -157,10 +164,16 @@ def test_step_refuses_tensors_on_another_device():
 
 
 def test_importing_builds_nothing():
-    """nvcc and ctypes are touched at first launch, never at import."""
+    """nvcc, g++ and ctypes are touched at first launch, never at
+    import."""
     build_dir = os.path.join(os.path.dirname(noahmp_tpu_torch.__file__),
                              "_build")
+    from noahmp_tpu_torch import native
     from noahmp_tpu_torch.kernels import _build
+    # the oracle's library: built on first use, into the port's build
+    # directory, never beside its sources
+    assert native._lib is None
+    assert native.library_path().startswith(build_dir)
     assert _build.sources() == ["column", "issue_probe", "tridiag"]
     # the carbon header is among the files the libraries' hash covers
     assert "carbon.cuh" in os.listdir(_build.CSRC_DIR)
