@@ -163,6 +163,39 @@ NATIVE_CONUS_STEPS = 12             # CONUS: from the init State, a day later
 NATIVE_BENCH_STEPS = 5              # bench_native's timed steps
 FUZZ_SEED = 42                      # the weather's draws
 NATIVE_LISTED = 8                   # outliers named a step
+# The point-steps beyond FUZZ_CAP or with nsnow changed (crossings) that
+# the JAX package's own step makes against the oracle on the same fuzz
+# (the ten columns JAX_FUZZ_COPIES times, FUZZ_SEED's weather), by set and
+# step, each step from the JAX step's own State: JAX_FUZZ_SOURCE, on the
+# CPU.  test_golden_native.py's cap allows none over its 750 column-steps
+# a set; over 40,960 columns the reference crosses it too, at knife-edge
+# points.  Two runs of one model part after a step or two, so their counts
+# differ by counting noise: given the two counts' sum, equal rates put
+# each crossing on either side with probability 1/2, and a set of the
+# card's fails when its count is above what that allows at
+# CROSSINGS_ALPHA, one-sided.  Where there is no such count (the CONUS
+# case, another size) no crossing passes.
+JAX_FUZZ_SOURCE = "scripts/oracle_fuzz_at_scale.py"
+JAX_FUZZ_COPIES = 4096
+JAX_FUZZ_CROSSINGS = {
+    "default": (0, 0, 0, 1, 0, 0, 2, 0, 0, 2, 0, 1,
+                0, 0, 1, 0, 1, 1, 1, 0, 0, 0, 0, 0),
+    "frz2_tbot1": (0, 0, 0, 1, 0, 0, 2, 0, 0, 2, 0, 1,
+                   0, 0, 1, 0, 1, 1, 1, 0, 0, 0, 0, 0),
+    "jarvis_run3_inf2": (0, 1, 0, 1, 1, 0, 0, 0, 0, 0, 0, 2,
+                         0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+    "dynveg2": (0, 2, 0, 1, 0, 0, 0, 1, 0, 1, 0, 0,
+                0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 2),
+    "snf2_stc2": (0, 0, 0, 0, 0, 0, 2, 0, 1, 0, 0, 0,
+                  0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 1, 1),
+    "btr3_run4_alb1_sfc2": (56, 17, 8, 10, 6, 6, 2, 3, 2, 4, 5, 2,
+                            5, 5, 4, 2, 3, 4, 2, 6, 3, 6, 5, 2),
+    "rad2_run2": (0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 0, 1,
+                  0, 1, 1, 0, 0, 1, 0, 0, 0, 0, 1, 0),
+    "rad3_frz2_snf3": (0, 0, 0, 0, 0, 0, 1, 1, 0, 0, 0, 1,
+                       0, 0, 0, 0, 1, 0, 0, 1, 0, 1, 0, 0),
+}
+CROSSINGS_ALPHA = 0.01
 RESYNC_STEPS = 3    # offline_kernel_agreement: from the init State and
                     # from the last restart of offline_case, each
 # Two implementations of the step that differ in the last bit part
@@ -2071,21 +2104,6 @@ def nudged(t, seed):
     return torch.from_numpy(y.astype(np.float32)).to(t.device)
 
 
-def rounding_variants(forcing, state, draws=ONE_ULP_DRAWS):
-    """The changes the model cannot tell from rounding, as (canopy exit
-    threshold, Forcing, State): the exit moved by each of EXIT_VARIANTS,
-    then tv, tg and every Forcing leaf moved by one ulp (``draws``
-    draws)."""
-    for e in EXIT_VARIANTS:
-        yield flux_physics.DTV_EXIT * (1.0 + e), forcing, state
-    for seed in range(SEED, SEED + draws):
-        yield (flux_physics.DTV_EXIT,
-               Forcing(*[nudged(x, seed + 2 + k)
-                         for k, x in enumerate(forcing)]),
-               state._replace(tv=nudged(state.tv, seed),
-                              tg=nudged(state.tg, seed + 1)))
-
-
 def judge_resynced(plain, forcing, state, ref, got, lutyp,
                    draws=ONE_ULP_DRAWS, also=()):
     """One step from the same State: ``ref`` = plain(forcing, state),
@@ -2101,10 +2119,18 @@ def judge_resynced(plain, forcing, state, ref, got, lutyp,
     best = ratio[outside]
     for other in also:
         best = torch.minimum(best, point_step_ratios(other, got)[0][outside])
-    for threshold, drive, start in rounding_variants(forcing, state, draws):
+    variants = [(e, None) for e in EXIT_VARIANTS] + [
+        (0.0, SEED + d) for d in range(draws)]
+    for e, seed in variants:
         if not bool((best > 1.0).any()):
             break
-        with canopy_exit(threshold):
+        start, drive = state, forcing
+        if seed is not None:
+            start = state._replace(tv=nudged(state.tv, seed),
+                                   tg=nudged(state.tg, seed + 1))
+            drive = Forcing(*[nudged(x, seed + 2 + k)
+                              for k, x in enumerate(forcing)])
+        with canopy_exit(flux_physics.DTV_EXIT * (1.0 + e)):
             alt = plain(drive, start)
         best = torch.minimum(best, point_step_ratios(alt, got)[0][outside])
     unexplained = outside[best > 1.0].cpu().numpy()
@@ -2371,18 +2397,15 @@ def phase_offline_cpu_agreement(device, n, hours, work, out_hours=3):
               " the points outside the bars between those two pairs")
 
 
-def oracle_step(step, got, ref, lutyp, explain=None):
+def oracle_step(step, got, ref, lutyp):
     """One step from the same State: ``got`` (the step under test) and
     ``ref`` (the oracle's) as {State field: numpy leaf}.  The point-steps
     beyond FUZZ_TIGHT (outliers), those beyond FUZZ_CAP or whose nsnow
-    changed (``crossed``), with the fields and land-use classes of the
-    outliers; ``explain(points)`` labels each crossing (``attribute``;
-    None: not explained)."""
+    changed (crossings), with the fields and land-use classes of the
+    outliers."""
     share, over_cap, nsnow, by_field = fuzz_shares(got, ref)
     out = np.flatnonzero(share > 1.0)
     crossed = np.flatnonzero(over_cap | nsnow)
-    labels = (explain(crossed) if explain is not None and crossed.size
-              else [None] * crossed.size)
     return {"step": step, "points": int(share.size),
             "outliers": int(out.size),
             "max_share_of_tight": float(share.max()) if share.size else 0.0,
@@ -2395,31 +2418,51 @@ def oracle_step(step, got, ref, lutyp, explain=None):
                             by_field.items() if v[p] > 1.0)
                 for p in out[np.argsort(-share[out])][:NATIVE_LISTED]],
             "crossed": [
-                f"point {int(p)}, land use {int(lutyp[p])}, "
-                + ("nsnow changed, " if nsnow[p] else "")
-                + ", ".join(f"{k} {float(v[p]):.3g}" for k, v in
-                            by_field.items() if v[p] * FUZZ_TIGHT[k]
-                            > FUZZ_CAP[k])
-                + f", {label or 'not explained'}"
-                for p, label in zip(crossed, labels)],
-            "crossings_by_label": {
-                str(label): labels.count(label) for label in set(labels)},
-            "unexplained_crossings": labels.count(None)}
+                f"point {int(p)}, land use {int(lutyp[p])}"
+                + (", nsnow changed" if nsnow[p] else "")
+                + "".join(f", {k} {float(v[p]):.3g}" for k, v in
+                          by_field.items() if v[p] * FUZZ_TIGHT[k]
+                          > FUZZ_CAP[k])
+                for p in crossed]}
 
 
-def check_oracle(label, reports):
+def crossings_reference(name, copies, steps):
+    """The JAX step's crossings on FUZZ_COMBOS set ``name`` over its
+    first ``steps`` steps at ``copies`` (JAX_FUZZ_CROSSINGS); None at
+    any other size or depth."""
+    by_step = JAX_FUZZ_CROSSINGS.get(name)
+    if copies != JAX_FUZZ_COPIES or by_step is None or steps > len(by_step):
+        return None
+    return sum(by_step[:steps])
+
+
+def crossings_allowed(reference):
+    """The most crossings a run may make beside ``reference`` crossings
+    of the JAX step over the same steps: the largest c with P(X >= c) >=
+    CROSSINGS_ALPHA for X ~ Binomial(c + reference, 1/2).  None as the
+    reference: 0."""
+    if reference is None:
+        return 0
+    c = 0
+    while True:
+        n = c + 1 + reference
+        tail = sum(math.comb(n, k) for k in range(c + 1, n + 1)) / 2.0 ** n
+        if tail < CROSSINGS_ALPHA:
+            return c
+        c += 1
+
+
+def check_oracle(label, reports, reference=None):
     """test_golden_native.py's limits over the steps of one comparison:
-    no point-step beyond FUZZ_CAP or with nsnow changed that
-    ``attribute`` does not explain, at most
+    no more point-steps beyond FUZZ_CAP or with nsnow changed than
+    crossings_allowed(``reference``) (the JAX test's: none), at most
     FUZZ_OUTLIER_FRAC of the point-steps beyond FUZZ_TIGHT (crossings
     included).  Returns the summary the phase prints."""
-    for r in reports:
-        if r["unexplained_crossings"]:
-            raise AssertionError(
-                f"{label}, step {r['step']}: beyond FUZZ_CAP {FUZZ_CAP} or "
-                f"nsnow changed: {r['crossed'][:NATIVE_LISTED]}")
+    allowed = crossings_allowed(reference)
     points = sum(r["points"] for r in reports)
     outliers = sum(r["outliers"] for r in reports)
+    crossings = [f"step {r['step']}: {at}" for r in reports
+                 for at in r["crossed"]]
     summary = {
         "steps": len(reports), "point_steps": points, "outliers": outliers,
         "outliers_by_step": [r["outliers"] for r in reports],
@@ -2430,13 +2473,16 @@ def check_oracle(label, reports):
                                     for c in r["outlier_land_use"]}),
         "outliers_at": [f"step {r['step']}: {at}" for r in reports
                         for at in r["outliers_at"]][:NATIVE_LISTED],
-        "crossings": [f"step {r['step']}: {at}" for r in reports
-                      for at in r["crossed"]][:NATIVE_LISTED],
-        "crossings_by_label": {
-            label: sum(r["crossings_by_label"].get(label, 0)
-                       for r in reports)
-            for label in sorted({k for r in reports
-                                 for k in r["crossings_by_label"]})}}
+        "crossings": len(crossings), "crossings_of_jax": reference,
+        "crossings_allowed": allowed,
+        "crossings_by_step": [len(r["crossed"]) for r in reports],
+        "crossed": crossings}
+    if len(crossings) > allowed:
+        raise AssertionError(
+            f"{label}: {len(crossings)} point-steps beyond FUZZ_CAP "
+            f"{FUZZ_CAP} or with nsnow changed (at most {allowed}; the JAX "
+            f"step's: {reference}): "
+            f"{crossings[:NATIVE_LISTED]}")
     if outliers > FUZZ_OUTLIER_FRAC * points:
         raise AssertionError(
             f"{label}: {outliers} of {points} point-steps beyond FUZZ_TIGHT "
@@ -2445,47 +2491,7 @@ def check_oracle(label, reports):
     return summary
 
 
-def attribute(params_cpu, opts, dt, static, forcing, state, got, ref,
-              points):
-    """Whose is each crossing at ``points`` (beyond FUZZ_CAP of the
-    oracle's State ``ref``, or nsnow changed), from the same State and
-    Forcing on the CPU: "the model's" when column_plain gives the answer
-    of the step under test (``got``) there, within FUZZ_TIGHT and with
-    its nsnow: the model parts from the oracle at that point, and the CPU
-    tests hold column_plain to the JAX package; "rounding" when
-    column_plain with the State and Forcing moved by one ulp
-    (ONE_ULP_DRAWS draws) or the canopy exit moved (EXIT_VARIANTS), as
-    judge_resynced moves them, comes within FUZZ_CAP of the oracle with
-    its nsnow: the model gives either answer under a change it cannot
-    tell from rounding; None: not explained.  One label a point."""
-    rows = torch.as_tensor(points, dtype=torch.long)
-
-    def sub(tree):
-        return type(tree)(*[x.cpu()[rows].contiguous() for x in tree])
-    static, forcing, state = sub(static), sub(forcing), sub(state)
-    fields = list(FUZZ_TIGHT) + ["nsnow"]
-    fused = make_fused_step(params_cpu, opts, dt, static, device="cpu")
-
-    def plain(drive, start):
-        out = fused(None, drive, start)[0]
-        return {name: getattr(out, name).numpy() for name in fields}
-    share, _cap, nsnow, _ = fuzz_shares(plain(forcing, state),
-                                        {k: got[k][points] for k in fields})
-    labels = ["the model's" if ok else None
-              for ok in (share <= 1.0) & ~nsnow]
-    want = {k: ref[k][points] for k in fields}
-    for threshold, drive, start in rounding_variants(forcing, state):
-        if all(labels):
-            break
-        with canopy_exit(threshold):
-            _share, cap, nsnow, _ = fuzz_shares(plain(drive, start), want)
-        labels = [label or ("rounding" if ok else None)
-                  for label, ok in zip(labels, ~cap & ~nsnow)]
-    return labels
-
-
-def against_oracle(step, static, forcings, state, opts, dt, lutyp, params,
-                   params_cpu):
+def against_oracle(step, static, forcings, state, opts, dt, lutyp, params):
     """``step(forcing, state)`` along its own trajectory, each step also
     taken by the oracle (noahmp_step_batch, on the host) from the same
     State, copied from ``state``'s device.  ``forcings``: one Forcing
@@ -2504,11 +2510,19 @@ def against_oracle(step, static, forcings, state, opts, dt, lutyp, params,
         new = step(forcing, state)[0]
         got = {name: getattr(new, name).cpu().numpy()
                for name in list(FUZZ_TIGHT) + ["nsnow"]}
-        reports.append(oracle_step(
-            k, got, cs, lutyp, lambda points, f=forcing, s=state: attribute(
-                params_cpu, opts, dt, static, f, s, got, cs, points)))
+        reports.append(oracle_step(k, got, cs, lutyp))
         state = new
     return reports
+
+
+def native_fields(totals):
+    """A path's totals of phase native_oracle, as keys of the kernels
+    line."""
+    return {"native_outliers": totals["outliers"],
+            "native_point_steps": totals["point_steps"],
+            "native_crossings": totals["crossings"],
+            "native_crossings_of_jax": totals["crossings_of_jax"],
+            "native_max_share_of_tight": totals["max_share_of_tight"]}
 
 
 def host_cpu():
@@ -2541,15 +2555,15 @@ def phase_native_oracle(params, device, work, free_running_ms,
     card's trajectory also taken by the oracle from the card's State;
     (b) the generated CONUS case at ``n_conus`` points, exact forcing,
     from the init State and from the card's State ``day_hours`` later;
-    both held to FUZZ_TIGHT and FUZZ_OUTLIER_FRAC, each point-step beyond
-    FUZZ_CAP or with nsnow changed explained by ``attribute``; (c) the
+    both held to FUZZ_TIGHT and FUZZ_OUTLIER_FRAC, and to no more
+    point-steps beyond FUZZ_CAP or with nsnow changed than
+    crossings_allowed (none on the CONUS case); (c) the
     oracle's own rate (bench_native) on the uniform case at ``n_bench``
     points, one thread and all, beside the fused step's free-running
     rate (phase timing).  Launch counts zeroed before (a)
     and read after (b)."""
     t0 = time.perf_counter()
     model, cores = host_cpu()
-    params_cpu = load_params("USGS", "STAS", device="cpu")
     native.load()
     threaded = native.openmp()
     native.set_threads(cores)
@@ -2578,8 +2592,10 @@ def phase_native_oracle(params, device, work, free_running_ms,
             reports = against_oracle(
                 take, static, (fuzz_forcing(rng, n) for _ in range(steps)),
                 tree_from_numpy(State, state_np, device), opts, DT, lutyp,
-                params, params_cpu)
-            fuzz[f"{path} {name}"] = check_oracle(f"{path} {name}", reports)
+                params)
+            fuzz[f"{path} {name}"] = check_oracle(
+                f"{path} {name}", reports,
+                crossings_reference(name, copies, steps))
 
     # (b) the CONUS case, from the init State and a day later
     case = write_case(n_conus, 2, os.path.join(work, "native"))
@@ -2601,7 +2617,7 @@ def phase_native_oracle(params, device, work, free_running_ms,
             lambda f, s: fused(None, f, s), c_static,
             ({k: v.numpy() for k, v in f.items()} for f in forcings),
             State(*[x.contiguous() for x in state]), cfg.options, cfg.dt,
-            c_host.lutyp, params, params_cpu)
+            c_host.lutyp, params)
         conus[label] = check_oracle(f"column_cuda CONUS {label}", reports)
     launches = {"column": column_cuda.launches,
                 "thomas": dict(thomas_cuda.launches_by_rows)}
@@ -2616,21 +2632,29 @@ def phase_native_oracle(params, device, work, free_running_ms,
                 if threaded else None)
     card_rate = (n_bench / (free_running_ms * 1e-3) if free_running_ms
                  else None)
-    fuzz_all = list(fuzz.values()) + list(conus.values())
-    out = {
-        "launches": launches,
-        "point_steps": sum(r["point_steps"] for r in fuzz_all),
-        "outliers": sum(r["outliers"] for r in fuzz_all),
-        "max_share_of_tight": max(r["max_share_of_tight"] for r in fuzz_all),
-        "rate_1_thread": rate_1, "rate_all_threads": rate_all,
-        "threads": cores if threaded else 1}
+    by_path = {
+        "column_cuda": [r for k, r in fuzz.items()
+                        if k.startswith("column_cuda ")]
+        + list(conus.values()),
+        "make_step": [r for k, r in fuzz.items()
+                      if k.startswith("make_step ")]}
+    totals = {path: {"point_steps": sum(r["point_steps"] for r in rs),
+                     "outliers": sum(r["outliers"] for r in rs),
+                     "crossings": sum(r["crossings"] for r in rs),
+                     "crossings_of_jax": sum(r["crossings_of_jax"] or 0
+                                             for r in rs),
+                     "max_share_of_tight": max(r["max_share_of_tight"]
+                                               for r in rs)}
+              for path, rs in by_path.items()}
+    out = {"launches": launches, "totals": totals,
+           "rate_1_thread": rate_1, "rate_all_threads": rate_all,
+           "threads": cores if threaded else 1}
     emit("native_oracle", n_fuzz=n, fuzz_steps=fuzz_steps,
          eager_steps=eager_steps, n_conus=n_conus, conus_steps=conus_steps,
          limits={"tight": FUZZ_TIGHT, "cap": FUZZ_CAP,
-                 "outlier_frac": FUZZ_OUTLIER_FRAC},
-         fuzz=fuzz, conus=conus, launches=launches,
-         point_steps=out["point_steps"], outliers=out["outliers"],
-         max_share_of_tight=out["max_share_of_tight"],
+                 "outlier_frac": FUZZ_OUTLIER_FRAC,
+                 "crossings_from": JAX_FUZZ_SOURCE},
+         fuzz=fuzz, conus=conus, launches=launches, totals=totals,
          oracle={"library": os.path.basename(native.library_path()),
                  "flags": " ".join(native.CXX_FLAGS), "openmp": threaded,
                  "n": n_bench, "timed_steps": NATIVE_BENCH_STEPS,
@@ -2650,8 +2674,14 @@ def phase_native_oracle(params, device, work, free_running_ms,
          note="each step of the card's trajectory also taken by the oracle "
               "from the card's State; outliers: point-steps beyond "
               "FUZZ_TIGHT in any of its fields (share: |card - oracle| "
-              "over that field's FUZZ_TIGHT); oracle rates: bench_native, "
-              "host clock, one warm call then the timed steps in place")
+              "over that field's FUZZ_TIGHT); crossings: beyond FUZZ_CAP "
+              "or with nsnow changed, crossings_of_jax the JAX step's own "
+              "on its own trajectory over the same set and steps "
+              "(crossings_from), crossings_allowed the most that passes "
+              "beside it (a one-sided binomial test at CROSSINGS_ALPHA "
+              f"= {CROSSINGS_ALPHA}; none without a JAX count); oracle "
+              "rates: bench_native, host clock, one warm call then the "
+              "timed steps in place")
     return out
 
 
@@ -3339,6 +3369,19 @@ def main():
         entry["launches_carbon_path"] = carbon_launches["thomas"][rows]
         entry["launches_chunk_path"] = chunk_launches["thomas"][rows]
         entry["launches_native_path"] = oracle["launches"]["thomas"][rows]
+        entry.update(native_fields(oracle["totals"]["make_step"]))
+        entry["timing"] += (
+            "; native_*: phase native_oracle, the eager step (make_step, "
+            f"which launches this kernel) on {len(NATIVE_EAGER_COMBOS)} "
+            f"option sets x {NATIVE_EAGER_STEPS} steps x "
+            f"{10 * NATIVE_COPIES} fuzz points against the serial C++ "
+            "reference column, each step from the same State: "
+            "native_outliers of native_point_steps beyond FUZZ_TIGHT, "
+            "native_crossings beyond FUZZ_CAP or with nsnow changed "
+            "(native_crossings_of_jax: the JAX step's own on the same sets "
+            "and steps; a set passes within counting noise of its count), "
+            "native_max_share_of_tight the worst |step - oracle| over "
+            "FUZZ_TIGHT")
     entries.append({
         "name": "column_cuda", "route": "cuda",
         "source": "noahmp_tpu_torch/csrc/column.cu",
@@ -3381,9 +3424,7 @@ def main():
         "native_point_steps_per_s_1_thread": oracle["rate_1_thread"],
         "native_point_steps_per_s_all_threads": oracle["rate_all_threads"],
         "native_threads": oracle["threads"],
-        "native_outliers": oracle["outliers"],
-        "native_point_steps": oracle["point_steps"],
-        "native_max_share_of_tight": oracle["max_share_of_tight"],
+        **native_fields(oracle["totals"]["column_cuda"]),
         "step_wall_ms": timing["wall_ms"],
         "host_share_ms": timing["wall_ms"] - timing["ms"],
         "host_enqueue_ms": timing["host_enqueue_ms"],
@@ -3429,15 +3470,19 @@ def main():
                   f"case at n = {N_POINTS}, {NATIVE_BENCH_STEPS} timed steps "
                   "after a warm one, host clock, at 1 and native_threads "
                   "OpenMP threads (null: built without OpenMP); "
-                  "native_outliers of native_point_steps: the card's steps "
-                  "(column_cuda on 8 option sets x "
-                  f"{NATIVE_FUZZ_STEPS} steps x {10 * NATIVE_COPIES} fuzz "
+                  "native_outliers of native_point_steps: the fused "
+                  f"step's (column_cuda on {len(FUZZ_COMBOS)} option sets "
+                  f"x {NATIVE_FUZZ_STEPS} steps x {10 * NATIVE_COPIES} fuzz "
                   f"points and 2 x {NATIVE_CONUS_STEPS} steps x "
-                  f"{N_OFFLINE_CPU} CONUS points; make_step on 2 sets x "
-                  f"{NATIVE_EAGER_STEPS} steps x {10 * NATIVE_COPIES}), each "
-                  "from the same State as the oracle's, beyond FUZZ_TIGHT; "
+                  f"{N_OFFLINE_CPU} CONUS points), each from the same State "
+                  "as the oracle's, beyond FUZZ_TIGHT; native_crossings: "
+                  "beyond FUZZ_CAP or with nsnow changed "
+                  "(native_crossings_of_jax: the JAX step's own on the same "
+                  "fuzz sets and steps; a set passes within counting noise "
+                  "of its count, CONUS with none); "
                   "native_max_share_of_tight: the worst |card - oracle| "
-                  "over FUZZ_TIGHT; "
+                  "over FUZZ_TIGHT (the eager step's: on the thomas_cuda "
+                  "entries); "
                   "stages[].ms: one launch alone, back to back with itself; "
                   "plain_ms: summed device time of the eager step's kernels "
                   "(torch.profiler); plain_wall_ms and step_wall_ms: host "

@@ -34,7 +34,6 @@ import numpy as np
 import torch
 
 from ..constants import MSNOW, NLEVELS, NSOIL
-from ..device import resolve_device
 from ..options import Options
 from ..state import Forcing, State, Static
 
@@ -308,14 +307,6 @@ def state_to_array(state: State, rows=slice(None)) -> np.ndarray:
     for name, _ in CState._fields_:
         out[name] = sr[name]
     return out
-
-
-def state_from_array(arr: np.ndarray, device=None) -> State:
-    """A batch of ColState as the port's State on ``device`` (``None``:
-    the card)."""
-    device = resolve_device(device)
-    return State(*[torch.from_numpy(np.ascontiguousarray(arr[name]))
-                   .to(device) for name in State._fields])
 
 
 def _struct(ctype, row):

@@ -1,26 +1,30 @@
 """The JAX package's step against the serial C++ reference column on the
 resync fuzz of ``chip_smoke.py``'s ``native_oracle`` phase, at its size:
 the ten columns of ``tests/test_golden_native.py`` repeated (4,096
-times each by default) under per-point weather, each step taken by the
-oracle (``noahmp_tpu_torch.native``, the same library as the JAX
-binding's: equal structs, sources and flags, ``test_torch_native.py``)
-from the State the JAX step started from.  One JSON line an option set:
-the point-steps beyond ``FUZZ_TIGHT``, those beyond ``FUZZ_CAP`` and
-those whose ``nsnow`` changed, with their steps, points and land-use
-classes.
+times each by default) under per-point weather from the phase's seed,
+each step taken by the oracle (``noahmp_tpu_torch.native``, the same
+library as the JAX binding's: equal structs, sources and flags,
+``tests/test_torch_native.py``) from the State the JAX step started
+from.  One JSON line an option set: the point-steps beyond
+``FUZZ_TIGHT``, those beyond ``FUZZ_CAP`` or whose ``nsnow`` changed
+(crossings), by step, with their points and land-use classes.
 
-It says how far the reference itself sits from the oracle where the
-fuzz meets many knife-edge states, beside what the phase measures on
-the card.  Not a test (pytest does not collect it); it imports both
-packages, as the tests do::
+The JAX test's ``FUZZ_CAP`` allows no crossing over its 750 column-steps
+a set; at 40,960 columns the reference crosses it too.
+``crossings_by_step`` of each set is ``chip_smoke.py``'s
+``JAX_FUZZ_CROSSINGS``: a set of the card's may cross no more often over
+its steps than the reference did over the same steps.  It imports both
+packages, as the tests do, and runs on the CPU (about 12 minutes on 8
+cores)::
 
-    JAX_PLATFORMS=cpu python tests/oracle_fuzz_at_scale.py \\
+    JAX_PLATFORMS=cpu python scripts/oracle_fuzz_at_scale.py \\
         [--copies 4096] [--steps 24] [--sets default,dynveg2]
 """
 
 import argparse
 import json
 import os
+import shutil
 import sys
 import tempfile
 
@@ -52,6 +56,13 @@ def main(argv=None):
     ap.add_argument("--sets", default=",".join(n for n, _ in FUZZ_COMBOS))
     args = ap.parse_args(argv)
     native.BUILD_DIR = tempfile.mkdtemp(prefix="noahmp_oracle_")
+    try:
+        run(args)
+    finally:
+        shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+
+
+def run(args):
     native.set_threads(os.cpu_count())
     params, jax_params = load_params(device="cpu"), jax_load_params()
     static_np, state_np = fuzz_case(args.copies)
@@ -90,6 +101,9 @@ def main(argv=None):
             "point_steps": n * args.steps, "outliers": outliers,
             "outlier_share": outliers / (n * args.steps),
             "crossings": len(crossed),
+            "crossings_by_step": [sum(c["step"] == k for c in crossed)
+                                  for k in range(args.steps)],
+            "nsnow_changed": sum(c["nsnow_changed"] for c in crossed),
             "crossing_land_use": sorted({c["land_use"] for c in crossed}),
             "crossed": crossed}), flush=True)
 

@@ -4,6 +4,7 @@ of parameters the byte bound counts."""
 
 import ctypes
 import importlib.util
+import math
 import os
 import shutil
 import subprocess
@@ -317,10 +318,10 @@ def _oracle_states(n=1000):
     return ref, {k: v.copy() for k, v in ref.items()}
 
 
-def _judge(smoke, got, ref, explain=None):
+def _judge(smoke, got, ref, reference=None):
     lutyp = np.full(got["tg"].shape[0], 7, np.int32)
-    return smoke.check_oracle("test", [smoke.oracle_step(0, got, ref, lutyp,
-                                                         explain)])
+    return smoke.check_oracle("test", [smoke.oracle_step(0, got, ref, lutyp)],
+                              reference)
 
 
 def test_oracle_judge_fails_one_point_over_the_cap(smoke):
@@ -359,45 +360,58 @@ def test_oracle_judge_allows_half_a_percent_beyond_tight(smoke, outliers,
 
 
 def test_oracle_judge_passes_only_an_explained_crossing(smoke):
-    """A point-step beyond FUZZ_CAP passes only with a label from the
-    explainer; it still counts as an outlier."""
+    """A point-step beyond FUZZ_CAP passes only beside the JAX step's own
+    crossings over the same set and steps, within counting noise of
+    them; with no such count, none passes.  It still counts as an
+    outlier."""
     ref, got = _oracle_states()
     got["tv"][40] += 7.4
-    asked = []
-
-    def explain(points):
-        asked.append(list(points))
-        return ["the model's"] * len(points)
-    summary = _judge(smoke, got, ref, explain)
-    assert asked == [[40]]
+    with pytest.raises(AssertionError, match="at most 0.*point 40"):
+        _judge(smoke, got, ref)
+    summary = _judge(smoke, got, ref, reference=0)
     assert summary["outliers"] == 1
-    assert summary["crossings"] == ["step 0: point 40, land use 7, tv 24.7, "
-                                    "the model's"]
-    assert summary["crossings_by_label"] == {"the model's": 1}
-    with pytest.raises(AssertionError, match="point 40.*not explained"):
-        _judge(smoke, got, ref, lambda points: [None] * len(points))
+    assert summary["crossings"] == 1
+    assert summary["crossings_of_jax"] == 0
+    assert summary["crossed"] == ["step 0: point 40, land use 7, tv 24.7"]
+    got["tv"][41:50] += 7.4                 # 10 crossings beside the JAX 1
+    with pytest.raises(AssertionError, match="10 point-steps beyond FUZZ_CAP"
+                       r".*at most 9; the JAX step's: 1"):
+        _judge(smoke, got, ref, reference=1)
 
 
-def test_attribute_names_whose_a_crossing_is(smoke):
-    """``attribute``: the plain step's own answer is the model's; an
-    answer 10 K of tv off with the oracle on the plain step's is
-    rounding when a variant lands near the oracle, and unexplained when
-    the oracle is 10 K off too."""
-    params = load_params(device="cpu")
-    static, forcing, state = to_device(hetero_case("warm_day", 8), "cpu")
-    new = make_fused_step(params, Options(), DT, static, device="cpu")(
-        None, forcing, state)[0]
-    fields = list(smoke.FUZZ_TIGHT) + ["nsnow"]
-    plain = {name: getattr(new, name).numpy().copy() for name in fields}
-    points = np.array([1, 6])
+@pytest.mark.parametrize("reference, allowed", [
+    (None, 0), (0, 6), (1, 9), (6, 18), (10, 24), (168, 214)])
+def test_crossings_allowed_is_a_one_sided_binomial_test(smoke, reference,
+                                                        allowed):
+    """The most crossings beside ``reference`` of the JAX step: the
+    largest c whose tail P(X >= c), X ~ Binomial(c + reference, 1/2), is
+    at least CROSSINGS_ALPHA."""
+    assert smoke.CROSSINGS_ALPHA == 0.01
+    assert smoke.crossings_allowed(reference) == allowed
+    if reference is not None:
+        n = allowed + 1 + reference
+        tail = sum(math.comb(n, k) for k in range(allowed + 1, n + 1))
+        assert tail / 2.0 ** n < smoke.CROSSINGS_ALPHA
+        n -= 1
+        tail = sum(math.comb(n, k) for k in range(allowed, n + 1))
+        assert tail / 2.0 ** n >= smoke.CROSSINGS_ALPHA
 
-    def labels(got, ref):
-        return smoke.attribute(params, Options(), DT, static, forcing,
-                               state, got, ref, points)
-    assert labels(plain, plain) == ["the model's", "the model's"]
-    off = {k: v.copy() for k, v in plain.items()}
-    off["tv"][6] += 10.0
-    assert labels(off, plain) == ["the model's", "rounding"]
-    oracle = {k: v.copy() for k, v in plain.items()}
-    oracle["tv"][6] -= 10.0
-    assert labels(off, oracle) == ["the model's", None]
+
+def test_crossings_reference_reads_the_jax_count(smoke):
+    """Every FUZZ_COMBOS set has the JAX step's crossings for each step
+    the phase runs, summed over the steps run, at the phase's size
+    only."""
+    names = [name for name, _ in smoke.FUZZ_COMBOS]
+    assert sorted(smoke.JAX_FUZZ_CROSSINGS) == sorted(names)
+    assert smoke.JAX_FUZZ_COPIES == smoke.NATIVE_COPIES
+    for name in names:
+        by_step = smoke.JAX_FUZZ_CROSSINGS[name]
+        assert len(by_step) == smoke.NATIVE_FUZZ_STEPS
+        assert smoke.crossings_reference(
+            name, smoke.NATIVE_COPIES, smoke.NATIVE_FUZZ_STEPS) == sum(by_step)
+    assert smoke.crossings_reference("default", smoke.NATIVE_COPIES, 6) == 1
+    assert smoke.crossings_reference("dynveg2", smoke.NATIVE_COPIES, 6) == 3
+    assert smoke.crossings_reference("default", 2, 6) is None
+    assert smoke.crossings_reference(
+        "default", smoke.NATIVE_COPIES, smoke.NATIVE_FUZZ_STEPS + 1) is None
+    assert smoke.crossings_reference("CONUS", smoke.NATIVE_COPIES, 1) is None

@@ -115,14 +115,12 @@ def test_sources_name_no_jax_import():
 @pytest.mark.parametrize("entry", ["load_params", "init_state",
                                    "init_static", "make_step",
                                    "make_chunk_step", "make_simulate",
-                                   "simulate", "native.state_from_array"])
+                                   "simulate"])
 def test_default_device_is_the_card(entry):
     """device=None means CUDA: without a card every entry point raises
     instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
-    import numpy as np
-    from noahmp_tpu_torch import native
     calls = {
         "load_params": lambda: load_params(),
         "init_state": lambda: init_state(4),
@@ -136,8 +134,6 @@ def test_default_device_is_the_card(entry):
         "simulate": lambda: noahmp_tpu_torch.simulate(
             load_params(device="cpu"), Options(), 900.0,
             init_static(2, device="cpu"), None, init_state(2, device="cpu")),
-        "native.state_from_array": lambda: native.state_from_array(
-            np.zeros(2, native.STATE_DTYPE)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
