@@ -1736,10 +1736,55 @@ def phase_dist_two_ranks(device, case, n, hours, one_rank):
     return {"ms_per_step": two_ms}
 
 
+def forcing_split_check(case, n):
+    """The case's exact forcing at every step of its span, assembled on
+    this host with the pool (``io.POOL_SIZE`` parts of the point axis)
+    and with one part, in turns a step: every bit of every leaf the
+    same.  ms a step of each on the host clock (file reads on each
+    provider's own prefetch thread, as in a run)."""
+    cfg = offline_cfg(case, "split")
+    static_host = driver_io.static_to_host(
+        driver_io.load_domain(cfg.constfile, device="cpu"))
+    modes = {"pooled": driver_io.POOL_SIZE, "one_part": 1}
+    providers = {m: driver_io.FileForcing(cfg.indir, cfg.infreq,
+                                          static_host) for m in modes}
+    seconds = dict.fromkeys(modes, 0.0)
+    differing = {}
+    for k in range(cfg.nsteps):
+        when = cfg.begdatetime + k * cfg.timestep
+        got = {}
+        for mode in (modes if k % 2 == 0 else list(modes)[::-1]):
+            t0 = time.perf_counter()
+            got[mode] = providers[mode].assemble(when, modes[mode])
+            seconds[mode] += time.perf_counter() - t0
+        for name in Forcing._fields:
+            a = np.asarray(getattr(got["pooled"], name)).view(np.uint32)
+            b = np.asarray(getattr(got["one_part"], name)).view(np.uint32)
+            bad = int(np.count_nonzero(a != b))
+            if bad:
+                differing[name] = differing.get(name, 0) + bad
+    emit("offline_forcing_split", n=n, steps=cfg.nsteps,
+         pool_size=driver_io.POOL_SIZE, cpu_count=os.cpu_count(),
+         pool_min_points=driver_io.POOL_MIN_POINTS,
+         split_below_threshold=n < driver_io.POOL_MIN_POINTS,
+         **{f"{m}_ms_per_step": seconds[m] / cfg.nsteps * 1e3
+            for m in modes},
+         differing_values=differing,
+         note="FileForcing.assemble with io.POOL_SIZE parts and with one, "
+              "in turns a step; host clock; differing_values: values of a "
+              "leaf whose bits differ, by leaf, over the span")
+    if differing:
+        raise AssertionError(f"offline forcing: the pooled assembly differs "
+                             f"from one part's in bits: {differing}")
+
+
 def phase_offline_forcing(device, case, n, hours, reps=2):
     """The first ``hours`` model hours of the case with the exact forcing
     stack and with compact forcing, in turns: bytes uploaded, ms a step,
-    the host's split, and the final State of compact against exact."""
+    the host's split, and the final State of compact against exact.
+    First the case's whole span assembled with the pool and with one
+    part: bit for bit (``forcing_split_check``)."""
+    forcing_split_check(case, n)
     modes = ("exact", "compact")
     runs = {m: [] for m in modes}
     states = {}

@@ -11,12 +11,16 @@ Either way a file maps variable name -> array; forcing files are named
 package loads in the other.
 
 What lives where.  The forcing providers (``FileForcing``,
-``SyntheticForcing``, ``compact_chunk``) are numpy on the host, copied
-from the JAX package line for line, so that the exact forcing stack is
-bit-equal to the JAX one.  ``load_domain``, ``load_init`` and
-``load_restart`` return tensors on the device they are given
-(``None``: the card).  ``ChunkPrefetcher`` uploads each chunk's stacked
-Forcing, and ``make_chunk_expander`` interpolates a compact chunk on the
+``SyntheticForcing``, ``compact_chunk``) are numpy on the host and give
+the JAX package's values bit for bit.  ``FileForcing`` keeps the
+latitude terms of the solar formula across steps and, at
+``POOL_MIN_POINTS`` points or more, splits each step's per-point work
+over a small pool of threads (NumPy's loops release the interpreter
+lock) at slice boundaries that keep every bit.  ``load_domain``,
+``load_init`` and ``load_restart`` return tensors on the device they are
+given (``None``: the card).  ``ChunkPrefetcher`` uploads each chunk's
+stacked Forcing (a leaf with one value a step crosses as one value a
+step), and ``make_chunk_expander`` interpolates a compact chunk on the
 device with torch operations.  ``OutputWriter`` accumulates on the
 device and fetches at the output cadence only.
 
@@ -32,8 +36,10 @@ chunk updates in place).
 
 from __future__ import annotations
 
+import concurrent.futures
 import datetime
 import os
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,6 +52,53 @@ from ..utils import _host
 from . import netcdf, solar
 
 STATE_FIELDS = State._fields
+
+# FileForcing's split of a step's per-point work: the pool's threads, the
+# size below which a step runs on the calling thread, and the alignment
+# of the slices.  A vector loop's body and tail then cover the same
+# points in a slice as in one call over the whole array, so a split
+# gives the same bits as none.  Two threads, not more: each NumPy call
+# of a part takes the interpreter lock, and with four the run loop's
+# main thread waited longer for it than the assembly gained
+# (scripts/forcing_pool_sweep.py on the card's 8-core host).
+POOL_SIZE = max(1, min(2, (os.cpu_count() or 1) // 2))
+POOL_MIN_POINTS = 32768
+PART_ALIGN = 64
+
+_pool = None
+_pool_lock = threading.Lock()
+
+
+def _forcing_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The process's pool for forcing parts, made on first use."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = concurrent.futures.ThreadPoolExecutor(
+                POOL_SIZE, thread_name_prefix="noahmp-forcing-part")
+        return _pool
+
+
+def part_bounds(n: int, parts: int):
+    """[lo, hi) slices of ``n`` points in at most ``parts`` pieces, each
+    starting at a multiple of ``PART_ALIGN``."""
+    size = -(-n // max(1, parts))
+    size = max(PART_ALIGN, -(-size // PART_ALIGN) * PART_ALIGN)
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
+def _run_parts(fn, n: int, parts: int):
+    """``fn(lo, hi)`` over ``part_bounds(n, parts)``: on the calling
+    thread when that is one slice, else on the pool, waiting for every
+    part.  A part's exception propagates."""
+    bounds = part_bounds(n, parts)
+    if len(bounds) <= 1:
+        fn(0, n)
+        return
+    futures = [_forcing_pool().submit(fn, lo, hi) for lo, hi in bounds]
+    concurrent.futures.wait(futures)
+    for f in futures:
+        f.result()
 
 
 def _npz_path(path: str) -> str:
@@ -331,11 +384,9 @@ def compact_chunk(provider: "FileForcing", when, steps, timestep):
         yearlen = float(solar.year_length(now.year))
         jd64 = solar.julian_day(now)   # full f64, as the provider uses
         jd[t] = jd64                   # Forcing.julian is f32 anyway
-        d0 = provider._load(t0)
-        lon = np.asarray(d0.get("lon", 0.0), np.float32)
-        cosz[t] = np.broadcast_to(np.asarray(solar.cos_zenith(
-            np.asarray(provider.static.lat), lon, jd64,
-            yearlen), np.float32), (n,))
+        cosz[t] = solar.cos_zenith_from(
+            *provider._lat_terms(), provider._lon64(t0, provider._load(t0)),
+            jd64, yearlen)
     # consecutive-frame layout so the expander can index i0 and i0+1
     assert all(hour_index[h] == k for k, h in enumerate(hours))
     frames = np.empty((len(hours), len(FRAME_FIELDS), n), np.float32)
@@ -396,15 +447,38 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _upload_steps(fo, device) -> Forcing:
+    """The steps' Forcings (host arrays) stacked on ``device``: every
+    leaf a contiguous (T, n) float32 tensor with storage of its own.  A
+    leaf that holds one value a step (stride 0 at every step) crosses as
+    a (T,) vector and is spread on the device; a leaf that is the same
+    array as an earlier leaf at every step is copied on the device."""
+    cols = [[np.asarray(x, np.float32) for x in xs] for xs in zip(*fo)]
+    leaves = []
+    for k, xs in enumerate(cols):
+        twin = next((j for j in range(k)
+                     if all(a is b for a, b in zip(xs, cols[j]))), None)
+        if twin is not None:
+            leaves.append(leaves[twin].clone())
+        elif all(x.ndim == 1 and x.strides == (0,) for x in xs):
+            per_step = _upload(np.array([x[0] for x in xs], np.float32),
+                               device)
+            leaves.append(per_step[:, None].expand(
+                len(xs), xs[0].shape[0]).contiguous())
+        else:
+            leaves.append(_upload(np.stack(xs), device))
+    return Forcing(*leaves)
+
+
 class ChunkPrefetcher:
     """Builds the next chunks' stacked forcing on a background thread
     and ships them to the device while the current chunk computes.
 
     ``schedule``: iterable of (when, steps); for each entry the thread
     assembles the (steps, n) stacked Forcing (host-side provider calls +
-    np.stack) and uploads it to ``device``: every leaf a contiguous
-    (steps, n) float32 tensor there.  A bounded queue (depth 2) caps
-    host+device memory at two chunks in flight.  The uploads are
+    np.stack) and uploads it to ``device`` (``_upload_steps``): every
+    leaf a contiguous (steps, n) float32 tensor there.  A bounded queue
+    (depth 2) caps host+device memory at two chunks in flight.  The uploads are
     ordinary copies on the legacy default stream: ordered with the
     kernels enqueued before them, no event needed."""
 
@@ -431,12 +505,9 @@ class ChunkPrefetcher:
                                                          device)
                                                  for p in parts])
                     else:
-                        fo = [provider(when + i * timestep)
-                              for i in range(steps)]
-                        stacked = Forcing(*[
-                            _upload(np.stack([np.asarray(x, np.float32)
-                                              for x in xs]), device)
-                            for xs in zip(*fo)])
+                        stacked = _upload_steps(
+                            [provider(when + i * timestep)
+                             for i in range(steps)], device)
                     if not self._put(stacked):
                         return
             except BaseException as e:  # noqa: BLE001
@@ -501,6 +572,46 @@ class FileForcing(ForcingProvider):
         self.points_slice = points_slice
         self._cache: Dict[str, Dict[str, np.ndarray]] = {}
         self._inflight = {}  # isoformat -> Thread
+        self._lat = None     # float64 sin(lat), cos(lat)
+        # what a step reads of the last few files, by file time; a
+        # provider may be called from more than one thread
+        self._lon: Dict[datetime.datetime, np.ndarray] = {}
+        self._frames: Dict[datetime.datetime, np.ndarray] = {}
+        self._terms_lock = threading.Lock()
+
+    def _lat_terms(self):
+        """float64 ``sin(lat)`` and ``cos(lat)`` of the domain."""
+        with self._terms_lock:
+            if self._lat is None:
+                self._lat = solar.lat_terms(np.asarray(self.static.lat))
+            return self._lat
+
+    def _kept(self, cache, when, make):
+        """``cache[when]``, made by ``make()`` when missing; the last
+        four kept."""
+        with self._terms_lock:
+            value = cache.get(when)
+            if value is None:
+                value = make()
+                while len(cache) >= 4:
+                    cache.pop(next(iter(cache)))
+                cache[when] = value
+            return value
+
+    def _lon64(self, when: datetime.datetime, d) -> np.ndarray:
+        """float64 longitudes of the file at ``when`` (its float32
+        ``lon``, or 0)."""
+        return self._kept(self._lon, when, lambda: np.asarray(
+            np.asarray(d.get("lon", 0.0), np.float32), np.float64))
+
+    def _interp_frames(self, when: datetime.datetime, d) -> np.ndarray:
+        """The ``INTERP`` fields of the file at ``when`` as one float32
+        (len(INTERP), n) array, so that a part interpolates them all in
+        a few NumPy calls."""
+        n = self.static.lat.shape[0]
+        return self._kept(self._frames, when, lambda: np.stack([
+            np.broadcast_to(np.asarray(d[f], np.float32), (n,))
+            for f in self.INTERP]))
 
     def _fname(self, when: datetime.datetime) -> str:
         stamp = when.strftime("%Y%m%d%H")
@@ -531,10 +642,13 @@ class FileForcing(ForcingProvider):
         t = self._inflight.pop(key, None)
         if t is not None:
             t.join()
-        if key not in self._cache:
+        data = self._cache.get(key)
+        if data is None:
+            # read by reference: another thread may evict the entry
+            data = self._read(self._fname(when))
             self._evict()
-            self._cache[key] = self._read(self._fname(when))
-        return self._cache[key]
+            self._cache[key] = data
+        return data
 
     def _evict(self):
         try:
@@ -564,6 +678,15 @@ class FileForcing(ForcingProvider):
         self._inflight[key] = t
 
     def __call__(self, when: datetime.datetime) -> Forcing:
+        n = self.static.lat.shape[0]
+        return self.assemble(when, POOL_SIZE if n >= POOL_MIN_POINTS
+                             else 1)
+
+    def assemble(self, when: datetime.datetime, parts: int) -> Forcing:
+        """The Forcing at ``when``, its per-point work (``cosz`` and the
+        interpolated fields) split over ``parts`` slices of the point
+        axis on the pool (one slice: on the calling thread).  Every
+        split gives the same bits."""
         # naive model-calendar flooring (timezone-independent)
         from .config import _ANCHOR
         secs = self.infreq.total_seconds()
@@ -577,39 +700,50 @@ class FileForcing(ForcingProvider):
             self._prefetch(t1 if w == 0 else t1 + self.infreq)
 
         n = self.static.lat.shape[0]
-
-        def interp(name):
-            a = np.broadcast_to(np.asarray(d0[name], np.float32), (n,))
-            b = np.broadcast_to(np.asarray(d1[name], np.float32), (n,))
-            return np.asarray((1.0 - w) * a + w * b, np.float32)
-
-        # interp/hold return read-only numpy views aliasing _cache
-        # entries; cache arrays are never mutated in place (the
-        # prefetch thread only inserts whole new entries), so the
-        # views stay valid.  Any future in-place writer must copy.
-        def hold(name):
-            return np.broadcast_to(
-                np.asarray(d0[name], np.float32), (n,))
-
         yearlen = float(solar.year_length(when.year))
         jd = solar.julian_day(when)
-        lon = np.asarray(d0.get("lon", 0.0), np.float32)
-        cosz = solar.cos_zenith(np.asarray(self.static.lat), lon, jd,
-                                yearlen)
+        sin_lat, cos_lat = self._lat_terms()
+        lon = self._lon64(t0, d0)
+        a = self._interp_frames(t0, d0)
+        b = self._interp_frames(t1, d1) if w > 0 else a
+        cosz = np.empty(n, np.float32)
+        fields = np.empty(a.shape, np.float32)
+
+        def part(lo, hi):
+            cosz[lo:hi] = solar.cos_zenith_from(
+                sin_lat[lo:hi], cos_lat[lo:hi],
+                lon if lon.ndim == 0 else lon[lo:hi], jd, yearlen)
+            # every INTERP field at once, (1 - w) a + w b, written in
+            # place: a temporary of the whole width costs more than this
+            dst = fields[:, lo:hi]
+            np.multiply(a[:, lo:hi], 1.0 - w, out=dst)
+            np.add(dst, w * b[:, lo:hi], out=dst)
+
+        _run_parts(part, n, parts)
+        out = dict(zip(self.INTERP, fields))
+
+        # hold returns read-only numpy views aliasing _cache entries;
+        # cache arrays are never mutated in place (the prefetch thread
+        # only inserts whole new entries), so the views stay valid.  Any
+        # future in-place writer must copy.
+        def hold(name, default=None):
+            if name in d0 or default is None:
+                return np.broadcast_to(np.asarray(d0[name], np.float32),
+                                       (n,))
+            return one(default)
+
+        def one(v):
+            """One value for every point: a stride-0 view, which the
+            prefetcher uploads as one value a step."""
+            return np.broadcast_to(np.float32(v), (n,))
+
         return Forcing(
-            sfctmp=interp("sfctmp"), sfcprs=interp("sfcprs"),
-            psfc=interp("sfcprs"), uu=interp("uu"), vv=interp("vv"),
-            q2=interp("q2"), soldn=interp("soldn"),
-            lwdn=interp("lwdn"), prcp=hold("prcp"),
-            cosz=np.broadcast_to(np.asarray(cosz, np.float32), (n,)),
-            co2air=hold("co2air") if "co2air" in d0
-            else np.full((n,), 39.0, np.float32),
-            o2air=hold("o2air") if "o2air" in d0
-            else np.full((n,), 18900.0, np.float32),
-            foln=hold("foln") if "foln" in d0
-            else np.full((n,), 1.0, np.float32),
-            julian=np.full((n,), jd, np.float32),
-            yearlen=np.full((n,), yearlen, np.float32))
+            sfctmp=out["sfctmp"], sfcprs=out["sfcprs"],
+            psfc=out["sfcprs"], uu=out["uu"], vv=out["vv"],
+            q2=out["q2"], soldn=out["soldn"], lwdn=out["lwdn"],
+            prcp=hold("prcp"), cosz=cosz,
+            co2air=hold("co2air", 39.0), o2air=hold("o2air", 18900.0),
+            foln=hold("foln", 1.0), julian=one(jd), yearlen=one(yearlen))
 
 
 class SyntheticForcing(ForcingProvider):

@@ -17,7 +17,20 @@ def cos_zenith(lat_rad, lon_rad, julian, yearlen=365.0):
 
     All args may be arrays (broadcast); returns same shape.
     """
+    return cos_zenith_from(*lat_terms(lat_rad), lon_rad, julian, yearlen)
+
+
+def lat_terms(lat_rad):
+    """float64 ``sin(lat)`` and ``cos(lat)``: the part of the formula
+    that depends on the domain alone, for ``cos_zenith_from``."""
     lat = np.asarray(lat_rad, dtype=np.float64)
+    return np.sin(lat), np.cos(lat)
+
+
+def cos_zenith_from(sin_lat, cos_lat, lon_rad, julian, yearlen=365.0):
+    """``cos_zenith`` from precomputed float64 ``sin(lat)`` and
+    ``cos(lat)`` (``lat_terms``): the same expression in the same
+    order, so the same bits."""
     lon = np.asarray(lon_rad, dtype=np.float64)
     jd = np.asarray(julian, dtype=np.float64)
 
@@ -26,8 +39,8 @@ def cos_zenith(lat_rad, lon_rad, julian, yearlen=365.0):
     decl = 0.409 * np.sin(2.0 * np.pi * (jd + 284.0) / yearlen)
     # hour angle: local solar time from UTC fraction + longitude
     hang = 2.0 * np.pi * (frac - 0.5) + lon
-    cosz = (np.sin(lat) * np.sin(decl)
-            + np.cos(lat) * np.cos(decl) * np.cos(hang))
+    cosz = (sin_lat * np.sin(decl)
+            + cos_lat * np.cos(decl) * np.cos(hang))
     return cosz.astype(np.float32)
 
 
