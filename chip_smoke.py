@@ -11,7 +11,7 @@ holds each kernel against its plain PyTorch version on the card, and
 drives the port's two main paths at n = 65,536 land points for a few
 steps on five cases: the eager step (``make_step``, whose two implicit
 solves go through the Thomas kernel) and the fused step
-(``make_fused_step``, the four launches of the column kernels a step,
+(``make_fused_step``, the five launches of the column kernels a step,
 enqueued by one C call).  It checks the outputs (finite, conservation
 residuals under the reference model's abort bounds, agreement with the port's own CPU run, every
 option value the fused step accepts), shows from the launch counters
@@ -106,7 +106,7 @@ from noahmp_tpu_torch.numerics.tridiag import masked_identity_rows
 from noahmp_tpu_torch.options import fused_option_sets
 from noahmp_tpu_torch.params.gathered import gather_params
 from noahmp_tpu_torch.physics import flux as flux_physics
-from noahmp_tpu_torch.state import Flux, Forcing, State, Static
+from noahmp_tpu_torch.state import Flux, Forcing, State, Static, init_state
 
 from benchmarks_torch import run as bench_run
 from benchmarks_torch.measure import (HostSplit, loop_ms_per_step,
@@ -117,6 +117,10 @@ from benchmarks_torch.oracle import (CROSSINGS_ALPHA, against_oracle,
 from benchmarks_torch.work import (PEAK_BYTES_PER_S, PEAK_F32_FLOPS,
                                    count_operations, step_bytes)
 from benchmarks_torch.work import bound as step_bound
+from benchmarks_torch.spinup import device_forcing
+from benchmarks_torch.spinup import domain as spinup_domain
+from scripts.canopy_trips import step_trips
+from scripts.canopy_trips import summary as trips_summary
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -131,6 +135,12 @@ T_CHUNK = 48                        # steps of a chunk over the fused step
 T_CHUNK_EAGER = 4                   # ... and over the eager step
 T_SIMULATE = 8
 T_STRICT, BAD_AT = 16, 5            # strict phase: steps, the corrupt record
+# canopy_split: the spin-up cell's span (its traced run starts there),
+# then the hours of the next day at which both builds of the column
+# kernels are held bit for bit against each other and timed
+SPLIT_SPAN = 5760
+SPLIT_HOURS = (0, 6, 12, 18)
+ONE_PASS_DEFINE = "-DNM_CANOPY_ONE_PASS"    # csrc/flux.cuh
 CORRUPT_SOLDN = 1.0e7               # W/m2: breaks the budgets by rounding
 CARBON_OPTIONS = (Options(veg=2, crs=1), Options(veg=5))
 CARBON_CASES = ("uniform", "hetero/warm_day", "hetero/cold_snow")
@@ -290,9 +300,45 @@ def phase_env():
     return card
 
 
+def one_pass_library_path():
+    """Where the column kernels built with their canopy loop in one pass
+    go: beside the package's build, in its ignored directory."""
+    path = _build.library_path("column")
+    return os.path.join(os.path.dirname(path), os.path.basename(path)
+                        .replace("libcolumn-", "libcolumn_one_pass-"))
+
+
+def build_one_pass():
+    """Start nvcc on csrc/column.cu with ONE_PASS_DEFINE; returns a
+    function that waits for it and returns the library's path."""
+    out = one_pass_library_path()
+    if os.path.exists(out):
+        return lambda: out
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = _build.build_command("column", tmp)
+    proc = subprocess.Popen(cmd[:1] + [ONE_PASS_DEFINE] + cmd[1:],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def wait():
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on column.cu with "
+                               f"{ONE_PASS_DEFINE}:\n{err}")
+        os.replace(tmp, out)
+        return out
+
+    return wait
+
+
 def phase_build():
+    """Every kernel's source, and the column kernels a second time with
+    their canopy loop in one pass, one nvcc each, all started together."""
     t0 = time.perf_counter()
+    one_pass = build_one_pass()
     paths = _build.build_all()
+    paths["column_one_pass"] = one_pass()
     seconds = time.perf_counter() - t0
     attrs = column.kernel_attributes()
     emit("build", seconds=round(seconds, 3), sources=sorted(paths),
@@ -2711,6 +2757,168 @@ def phase_timing(params, params_cpu, step, device, n, weights, clock_mhz,
             "wall_ms": f_ms, **bound}
 
 
+class ColumnBuild:
+    """A build of the column kernels' sources, run on a plan's pointers:
+    a step and, on the card, its flux stage alone.  Without a path, the
+    package's own build through ``column_cuda`` and ``launch_stage``;
+    else the library at ``path`` (the host build's on the CPU)."""
+
+    def __init__(self, name, path=None, on_card=True):
+        self.name, self.on_card, self.lib = name, on_card, None
+        if path is None:
+            self.launches = column.LAUNCHES_PER_STEP
+            return
+        self.lib = lib = ctypes.CDLL(path)
+        args_p = ctypes.POINTER(column._args_type())
+        self.launches = column.check_abi(lib, column._args_type())[7]
+        if on_card:
+            lib.noahmp_column_step.argtypes = [args_p, ctypes.c_void_p]
+            lib.noahmp_column_step.restype = ctypes.c_int
+            lib.noahmp_column_stage.argtypes = [args_p, ctypes.c_int,
+                                                ctypes.c_void_p]
+            lib.noahmp_column_stage.restype = ctypes.c_int
+        else:
+            lib.noahmp_column_host.argtypes = [args_p]
+            lib.noahmp_column_host.restype = ctypes.c_int
+
+    def step(self, plan, forcing, state):
+        if self.lib is None:
+            return column_cuda(plan, forcing, state)
+        args = plan.point_to(forcing, state)
+        new_state, flux = plan.outputs()
+        if self.on_card:
+            err = self.lib.noahmp_column_step(
+                ctypes.byref(args), torch.cuda.current_stream().cuda_stream)
+        else:
+            err = self.lib.noahmp_column_host(ctypes.byref(args))
+        if err != 0:
+            raise RuntimeError(f"{self.name}: step failed, error {err}")
+        return new_state, flux
+
+    def flux_stage(self, plan):
+        if self.lib is None:
+            return column.launch_stage(plan, "flux")
+        err = self.lib.noahmp_column_stage(
+            ctypes.byref(plan.args), column.STAGES.index("flux"),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: flux stage failed, CUDA "
+                               f"error {err}")
+
+
+def pass_counts(plan):
+    """The points of the last slab at the front (with a canopy) and at
+    the back (without one) of the list of the canopy loop's second pass
+    in the plan's last step (column_args.cuh:kPassCounters); reads the
+    card."""
+    tail = plan.scratch[column.SEAM_WORDS * plan.args.slab:]
+    with_canopy, without = tail[:column.PASS_COUNTERS].view(
+        torch.int32).tolist()
+    return with_canopy, without
+
+
+def differing_leaves(want, got):
+    """Names of the State and Flux leaves whose bits differ (NaN
+    included)."""
+    return [f"{type(a).__name__}.{name}"
+            for a, b in zip(want, got)
+            for name, x, y in zip(a._fields, a, b)
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32))]
+
+
+def phase_canopy_split(params, device, builds, n=N_LARGE, span=SPLIT_SPAN,
+                       hours=SPLIT_HOURS):
+    """The column kernels with their canopy loop in two passes
+    (``column.CANOPY_PASS_ENDS``) against the same sources built with one
+    pass of every trip, on the spin-up cell's domain (``n`` points of
+    ``benchmarks_torch.spinup.domain``) at its traced time of year: the
+    cell's ``span`` steps from a cold start on Jan 1 through the fused
+    step, then at each of ``hours`` of the next day one step of both
+    builds from the same State, every leaf bit for bit.  On the card
+    both builds' flux stage and whole step are timed there (CUDA events,
+    in turns), and the pass counters are read after the timing: the
+    share of the points that run the second pass, and of those without
+    a canopy.  Beside it the canopy trips of the plain step from the
+    same States (``scripts/canopy_trips.py``).  ``builds``: the
+    package's build and the one-pass build (``ColumnBuild``)."""
+    on_card = device.type == "cuda"
+    split, one_pass = builds
+    static = spinup_domain(n, SEED, device)
+    state = init_state(n, device=device)
+    fused = make_fused_step(params, Options(), DT, static, device=device)
+    plain = make_step(params, Options(), DT, device=device)
+    plan = column.ColumnPlan(fused.gathered, Options(), DT, static,
+                             need_cuda=on_card)
+    t0 = time.perf_counter()
+    k = 0
+    rows, trips = [], []
+    for hour in hours:
+        for k in range(k, span + hour * 4):
+            state, _ = fused(None, device_forcing(k * DT, static), state)
+        k = span + hour * 4
+        forcing = device_forcing(k * DT, static)
+        _s, point_trips, bare = step_trips(plain, static, forcing, state)
+        trips.append((point_trips, bare))
+        row = {"step": k, "hour": hour,
+               "plain_trips_mean": float(point_trips.mean()),
+               "plain_share_at_every_trip": float(
+                   (point_trips == flux_physics.NITERC).mean())}
+        got = split.step(plan, forcing, state)
+        with_canopy, without = pass_counts(plan)
+        want = one_pass.step(plan, forcing, state)
+        differ = differing_leaves(want, got)
+        if differ:
+            raise AssertionError(f"canopy_split step {k}: the split build "
+                                 f"differs from the one-pass build in "
+                                 f"{differ}")
+        row["leaves_bit_equal"] = sum(len(t) for t in got)
+        if on_card:
+            order = (split, one_pass) if len(rows) % 2 == 0 else (
+                one_pass, split)
+            for build in order:
+                row[f"{build.name}_flux_stage_ms"] = time_cuda(
+                    build.flux_stage, [(plan,)], device=device)
+                row[f"{build.name}_step_ms"] = time_cuda(
+                    build.step, [(plan, forcing, state)], device=device)
+                if build is split:
+                    # the counters as its last timed step left them
+                    with_canopy, without = pass_counts(plan)
+        row["second_pass_share"] = (with_canopy + without) / n
+        row["without_canopy_share"] = without / n
+        rows.append(row)
+        del got, want
+        state, _ = fused(None, forcing, state)
+        k += 1
+    seconds = time.perf_counter() - t0
+    ist, lutyp = static.ist.cpu().numpy(), static.lutyp.cpu().numpy()
+    out = {"n": n, "span_steps": span, "hours": list(hours),
+           "pass_ends": list(column.CANOPY_PASS_ENDS),
+           "launches_a_slab": {split.name: split.launches,
+                               one_pass.name: one_pass.launches},
+           "steps": rows,
+           "plain_trips": trips_summary(
+               np.concatenate([t for t, _b in trips]),
+               np.tile(ist, len(hours)), np.tile(lutyp, len(hours)),
+               np.concatenate([b for _t, b in trips])),
+           "seconds": round(seconds, 1)}
+    keys = ["second_pass_share", "without_canopy_share"]
+    if on_card:
+        keys += [f"{b.name}_{what}_ms" for b in builds
+                 for what in ("flux_stage", "step")]
+    for key in keys:
+        out[key] = statistics.mean(r[key] for r in rows)
+    emit("canopy_split", **out,
+         note="every State and Flux leaf of the split build bit-equal to "
+              f"the build with {ONE_PASS_DEFINE} at every step; *_ms: CUDA "
+              "events around 20 launches back to back, median of 5, the "
+              "two builds in turns, the mean over the hours; "
+              "second_pass_share, without_canopy_share: the pass counters "
+              "over n, after the timing; plain_trips: the plain step's "
+              "canopy trips at the same States (scripts/canopy_trips.py), "
+              "pooled over the hours")
+    return out
+
+
 def phase_profile(step, device, n, out_dir):
     from torch.profiler import ProfilerActivity, profile
     static, forcing, state = to_device(uniform_case(n), device)
@@ -2738,12 +2946,12 @@ def phase_profile(step, device, n, out_dir):
                "ms": e.device_time_total / 1e3} for e in top])
 
 
-def host_column_library(build_dir):
+def host_column_library(build_dir, *defines):
     """``csrc/column_host.cpp`` (the kernels' headers for the host) built
     with g++ as tests/test_torch_column_host.py builds it, and bound."""
     lib_path = os.path.join(build_dir, "libcolumn_host.so")
     subprocess.run(["g++", "-O1", "-std=c++17", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-o", lib_path,
+                    "-shared", "-fPIC", *defines, "-o", lib_path,
                     os.path.join(_build.CSRC_DIR, "column_host.cpp")],
                    check=True)
     lib = ctypes.CDLL(lib_path)
@@ -2898,6 +3106,15 @@ def cpu_rehearsal():
                             conus_steps=2, day_hours=2, n_bench=64)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    with tempfile.TemporaryDirectory(prefix="column_host_") as tmp:
+        builds = []
+        for name, defines in (("split", ()), ("one_pass", (ONE_PASS_DEFINE,))):
+            os.makedirs(os.path.join(tmp, name))
+            host_column_library(os.path.join(tmp, name), *defines)
+            builds.append(ColumnBuild(name, os.path.join(
+                tmp, name, "libcolumn_host.so"), False))
+        phase_canopy_split(params, device, builds, n=256, span=8,
+                           hours=(0, 1))
     emit("rehearsal_carbon_operations", **carbon_operations(params))
     static, forcing, state = to_device(uniform_case(N_OPS), device)
     fused = make_fused_step(params, Options(), DT, static, device="cpu")
@@ -2957,6 +3174,11 @@ def main():
     timing = phase_timing(params, params_cpu, step, device, N_POINTS,
                           weights, clock_mhz)
     chunk_timing = phase_chunk_timing(params, device, N_POINTS, T_CHUNK)
+    # the canopy loop in passes against one pass, on the spin-up cell's
+    # domain at its traced time of year
+    canopy = phase_canopy_split(params, device, (
+        ColumnBuild("split"),
+        ColumnBuild("one_pass", one_pass_library_path())))
 
     # the offline driver: the generated CONUS case through the CLI, a
     # resume, exact and compact forcing, the kernels against their plain
@@ -3036,6 +3258,13 @@ def main():
         "opt_veg_2": timing["carbon_ops"],
         "stages": [{**attr, "ms": timing["stage_ms"][attr["stage"]]}
                    for attr in attrs],
+        "canopy_pass_ends": canopy["pass_ends"],
+        "canopy_second_pass_share": canopy["second_pass_share"],
+        "canopy_without_canopy_share": canopy["without_canopy_share"],
+        "canopy_flux_stage_ms": canopy["split_flux_stage_ms"],
+        "one_pass_flux_stage_ms": canopy["one_pass_flux_stage_ms"],
+        "canopy_1m_ms": canopy["split_step_ms"],
+        "one_pass_1m_ms": canopy["one_pass_step_ms"],
         "chunk_ms_per_step": chunk_timing["chunk"]["ms_per_step"],
         "chunk_host_enqueue_ms_per_step":
             chunk_timing["chunk"]["host_enqueue_ms_per_step"],
@@ -3114,7 +3343,16 @@ def main():
                   "native_max_share_of_tight: the worst |card - oracle| "
                   "over FUZZ_TIGHT (the eager step's: on the thomas_cuda "
                   "entries); "
-                  "stages[].ms: one launch alone, back to back with itself; "
+                  "stages[].ms: the kernel's stage alone, back to back "
+                  "with itself; canopy_*, one_pass_*: phase canopy_split, "
+                  f"n = {N_LARGE} of the spin-up cell's domain after its "
+                  f"{SPLIT_SPAN} steps, at hours {list(SPLIT_HOURS)} of the "
+                  "next day, the build with the canopy loop in passes and "
+                  f"the one built with {ONE_PASS_DEFINE} in turns (CUDA "
+                  "events, 20 launches back to back, median of 5, mean over "
+                  "the hours): the flux stage alone and the whole step "
+                  "(canopy_1m_ms, one_pass_1m_ms), and the share of points "
+                  "entering each later pass; "
                   "plain_ms: summed device time of the eager step's kernels "
                   "(torch.profiler); plain_wall_ms and step_wall_ms: host "
                   "clock, median of 7, in turns; host_share_ms: "

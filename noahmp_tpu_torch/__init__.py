@@ -10,7 +10,7 @@ Quick start::
     step = make_step(params, Options(), dt=900.0)
     state, flux = step(static, forcing, state)
 
-    # the same step through the fused column kernels (4 launches)
+    # the same step through the fused column kernels (5 launches)
     fused = make_fused_step(params, Options(), 900.0, static)
     state, flux = fused(None, forcing, state)
 

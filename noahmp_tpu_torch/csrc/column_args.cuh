@@ -16,8 +16,11 @@
 // to a later one through the scratch buffer (ColumnArgs::scratch), laid
 // out (words, slab): word w of the slab's point j lies at
 // scratch[w * slab + j], so neighbouring threads touch neighbouring
-// addresses.  kernels/column.py sizes the buffer from its own copy of
-// the list (SEAM_FIELDS), held against this one by the same test.
+// addresses.  After the slab's words come kPassCounters int32 words: the
+// number of points at each end of the list of points that go on to the
+// canopy loop's second pass (flux.cuh:kCanopyPassEnd).  kernels/column.py
+// sizes the buffer from its own copy of the list (SEAM_FIELDS), held
+// against this one by the same test.
 #pragma once
 
 #include <cstdint>
@@ -245,7 +248,17 @@
   /* ground -> water */                                                    \
   XS(qvap, float) XS(qdew, float) XS(g_snowh, float)                       \
   XV(g_snice, float, 3) XV(g_snliq, float, 3) XV(g_stc, float, 7)          \
-  XV(g_swc, float, 4) XV(g_smc, float, 4) XV(g_imelt, int, 3)
+  XV(g_swc, float, 4) XV(g_smc, float, 4) XV(g_imelt, int, 3)              \
+  /* canopy loop, first pass -> second (flux.cuh:CanopyCarry), at */      \
+  /* the point's own slot; the list of the points, entry k at k */         \
+  XS(c_tv, float) XS(c_tah, float) XS(c_cm, float) XS(c_ch, float)         \
+  XS(c_h, float) XS(c_hg, float) XS(c_mozg, float) XS(c_fhg, float)        \
+  XS(c_liter, int) XS(c1_moz, float) XS(c1_mozsgn, int) XS(c1_fm, float)   \
+  XS(c1_fh, float) XS(c1_fm2, float) XS(c1_fh2, float) XS(c1_fv, float)    \
+  XS(c2_akms, float) XS(c2_akhs, float) XS(c2_rlmo, float)                 \
+  XS(c2_wstar2, float) XS(c2_ustar, float) XS(c_rssun, float)              \
+  XS(c_rssha, float) XS(c_psnsun, float) XS(c_psnsha, float)               \
+  XS(pending, int)
 
 // The 12 option switches (options.py:Options), uniform over the grid.
 #define NM_OPTION_FIELDS(X) \
@@ -283,6 +296,10 @@ constexpr int kNumOut = kNumState + kNumFlux;
 #define NM_WORDS_V(name, type, width) +(width)
 constexpr int kSeamWords = 0 NM_SEAM_FIELDS(NM_WORDS_S, NM_WORDS_V);
 
+// the list of the canopy loop's second pass fills from both ends, a
+// counter for each
+constexpr int kPassCounters = 2;
+
 #define NM_MEMBER_I(name) int name;
 #define NM_MEMBER_F(name) float name;
 
@@ -293,8 +310,9 @@ struct GenScalars { NM_GEN_SCALARS(NM_MEMBER_F) };
 // What the launcher is handed, by value as every stage kernel's
 // parameter (about 1.9 KB, under the 4 KB limit).  kernels/column.py
 // mirrors it as a ctypes.Structure, field for field.  scratch holds
-// kSeamWords * slab words; the launcher walks the n points slab by
-// slab, every stage on one slab before the next slab begins.
+// kSeamWords * slab + kPassCounters words; the launcher walks the n
+// points slab by slab, every stage on one slab before the next slab
+// begins.
 struct ColumnArgs {
   const void* in[kNumIn];
   void* out[kNumOut];

@@ -118,6 +118,21 @@ struct Seam {
 };
 static_assert(Seam::words_ == kSeamWords, "seam offsets and word count differ");
 
+// The list of the points that go on to the canopy loop's second pass
+// (flux.cuh:kCanopyPassEnd): entry k at pending_list(a)[k],
+// pass_counters(a)[0] of them from its front and pass_counters(a)[1]
+// from its back (the slab's last slot down), the counters behind the
+// slab's seam words, where the launcher on the host finds them too.
+static __host__ __device__ __forceinline__ int* pass_counters(
+    const ColumnArgs& a) {
+  return reinterpret_cast<int*>(static_cast<float*>(a.scratch) +
+                                kSeamWords * a.slab);
+}
+
+NM_INL int* pending_list(const ColumnArgs& a) {
+  return reinterpret_cast<int*>(a.scratch) + Seam::pending_ * a.slab;
+}
+
 // Everything one point of one stage touches.
 struct Point {
   const ColumnArgs& a;

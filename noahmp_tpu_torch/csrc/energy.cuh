@@ -205,27 +205,99 @@ NM_INL void energy_prologue(const Point& q, int nsnow,
   fx.errsw(swdown - (rad.fsa + rad.fsr));
 }
 
-// The vegetated tile's balance.  Its unmasked diagnostics are final;
-// what the aggregation may mask goes through the seam.
-NM_INL void energy_vege_tile(const Point& q) {
+NM_INL void store_canopy_carry(const Seam& sm, int opt_sfc,
+                               const CanopyCarry& k) {
+  sm.c_tv(k.tv);
+  sm.c_tah(k.tah);
+  sm.c_cm(k.cm);
+  sm.c_ch(k.ch);
+  sm.c_h(k.h);
+  sm.c_hg(k.hg);
+  sm.c_mozg(k.mozg);
+  sm.c_fhg(k.fhg);
+  sm.c_liter(k.liter ? 1 : 0);
+  if (opt_sfc == 1) {
+    sm.c1_moz(k.s1.moz);
+    sm.c1_mozsgn(k.s1.mozsgn);
+    sm.c1_fm(k.s1.fm);
+    sm.c1_fh(k.s1.fh);
+    sm.c1_fm2(k.s1.fm2);
+    sm.c1_fh2(k.s1.fh2);
+    sm.c1_fv(k.s1.fv);
+  } else {
+    sm.c2_akms(k.s2.akms);
+    sm.c2_akhs(k.s2.akhs);
+    sm.c2_rlmo(k.s2.rlmo);
+    sm.c2_wstar2(k.s2.wstar2);
+    sm.c2_ustar(k.s2.ustar);
+  }
+  sm.c_rssun(k.rssun);
+  sm.c_rssha(k.rssha);
+  sm.c_psnsun(k.psnsun);
+  sm.c_psnsha(k.psnsha);
+}
+
+NM_INL void load_canopy_carry(const Seam& sm, int opt_sfc, CanopyCarry& k) {
+  k.tv = sm.c_tv();
+  k.tah = sm.c_tah();
+  k.cm = sm.c_cm();
+  k.ch = sm.c_ch();
+  k.h = sm.c_h();
+  k.hg = sm.c_hg();
+  k.mozg = sm.c_mozg();
+  k.fhg = sm.c_fhg();
+  k.liter = sm.c_liter() != 0;
+  if (opt_sfc == 1) {
+    k.s1 = Sfcdif1Carry{sm.c1_moz(), sm.c1_mozsgn(), sm.c1_fm(), sm.c1_fh(),
+                        sm.c1_fm2(), sm.c1_fh2(), sm.c1_fv()};
+  } else {
+    k.s2 = Sfcdif2Carry{sm.c2_akms(), sm.c2_akhs(), sm.c2_rlmo(),
+                        sm.c2_wstar2(), sm.c2_ustar()};
+  }
+  k.rssun = sm.c_rssun();
+  k.rssha = sm.c_rssha();
+  k.psnsun = sm.c_psnsun();
+  k.psnsha = sm.c_psnsha();
+}
+
+// What a pass of the vegetated tile leaves a point to: done, or the
+// second pass, with a canopy or without one (elai + esai = 0: the
+// canopy loop's arithmetic gives NaN from its first trip on, see above,
+// and every trip of such a point takes the same branches)
+enum VegePass { kVegeDone = 0, kVegeGoesOn, kVegeGoesOnBare };
+
+// Pass P of the vegetated tile's balance (flux.cuh:kCanopyPassEnd).  A
+// point still in the canopy loop at the pass's end has its carry stored
+// in the seam for the second pass.  Else the tile's results are stored:
+// its unmasked diagnostics are final, what the aggregation may mask
+// goes through the seam.
+template <int P>
+NM_INL VegePass energy_vege_tile(const Point& q) {
   const ColumnArgs& a = q.a;
   const Seam& sm = q.sm;
   const float sfcprs = q.fo.sfcprs();
   const float htop = sm.htop(), z0mg = sm.z0mg();
 
+  CanopyCarry k{};
+  if (P > 0) load_canopy_carry(sm, a.opt.sfc, k);
   VegeFluxOut vf;
-  vege_flux(q.p, a.gen, a.opt, a.chen97_fixed_carry, a.dt, q.fx.get_sav(),
-            q.fx.get_sag(), q.fo.lwdn(), sm.ur(), q.fo.uu(), q.fo.vv(),
-            q.fo.sfctmp(), sm.thair(), q.fo.q2(), sm.eair(), sm.rhoair(), q.st.snowh(),
-            sm.elai() + sm.esai(), sm.gammav(), sm.gammag(), q.st.fwet(),
-            sm.laisun(), sm.laisha(), q.p.cwpvt(),
-            mx(htop, z0mg * 2.0f + MPE), sm.zlvl(), sm.zpd(),
-            mx(sm.z0m(), MPE), mx(q.fx.get_fveg(), 0.01f), z0mg, sm.emv(),
-            sm.emg(), q.st.canliq(), q.st.canice(), sm.stc_top(), sm.df_top(),
-            sm.dz_top(), sm.rsurf(), sm.latheav(), sm.latheag(), sm.parsun(),
-            sm.parsha(), sm.igs(), q.fo.foln(), q.fo.co2air(), q.fo.o2air(),
-            sm.btran(), sfcprs, sm.rhsur(), sfcprs, q.st.eah(), q.st.tah(),
-            q.st.tv(), q.st.tg(), q.st.cm(), q.st.ch(), vf);
+  const bool finished = vege_flux<canopy_first_trip(P), canopy_pass_end(P)>(
+      q.p, a.gen, a.opt, a.chen97_fixed_carry, a.dt, q.fx.get_sav(),
+      q.fx.get_sag(), q.fo.lwdn(), sm.ur(), q.fo.uu(), q.fo.vv(),
+      q.fo.sfctmp(), sm.thair(), q.fo.q2(), sm.eair(), sm.rhoair(), q.st.snowh(),
+      sm.elai() + sm.esai(), sm.gammav(), sm.gammag(), q.st.fwet(),
+      sm.laisun(), sm.laisha(), q.p.cwpvt(),
+      mx(htop, z0mg * 2.0f + MPE), sm.zlvl(), sm.zpd(),
+      mx(sm.z0m(), MPE), mx(q.fx.get_fveg(), 0.01f), z0mg, sm.emv(),
+      sm.emg(), q.st.canliq(), q.st.canice(), sm.stc_top(), sm.df_top(),
+      sm.dz_top(), sm.rsurf(), sm.latheav(), sm.latheag(), sm.parsun(),
+      sm.parsha(), sm.igs(), q.fo.foln(), q.fo.co2air(), q.fo.o2air(),
+      sm.btran(), sfcprs, sm.rhsur(), sfcprs, q.st.eah(), q.st.tah(),
+      q.st.tv(), q.st.tg(), q.st.cm(), q.st.ch(), k, vf);
+  if (!finished) {
+    store_canopy_carry(sm, a.opt.sfc, k);
+    return sm.elai() + sm.esai() > 0.0f ? kVegeGoesOn : kVegeGoesOnBare;
+  }
 
   sm.v_tv(vf.tv);
   sm.v_tgv(vf.tgv);
@@ -251,6 +323,7 @@ NM_INL void energy_vege_tile(const Point& q) {
   fx.chleaf(vf.chleaf);
   fx.chuc(vf.chuc);
   fx.chv2(vf.ch2v);
+  return kVegeDone;
 }
 
 // The bare tile's balance.

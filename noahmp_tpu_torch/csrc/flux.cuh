@@ -6,6 +6,15 @@
 // point's values once it has left the loop (done_before).  Here a
 // thread breaks at the top of the first trip that would be frozen
 // whole: the values it carries are the same.
+//
+// The canopy loop runs in two passes (column.cu says why): the first
+// runs the trips up to kCanopyPassEnd[0], the second the rest.  A point
+// still iterating at the end of the first pass hands its CanopyCarry to
+// the second, which recomputes the loop's invariants from the same
+// inputs with the same expressions, so every point does the same
+// arithmetic in the same order whatever the passes.  A build with
+// NM_CANOPY_ONE_PASS defined runs the loop in one pass (the tests hold
+// the two builds bit for bit against each other).
 #pragma once
 
 #include "column_io.cuh"
@@ -17,6 +26,39 @@ namespace nm {
 constexpr int NITERC = 20;
 constexpr int NITERG = 5;
 constexpr int NITERB = 5;
+
+// The trip at which each pass ends.  The first pass runs the first trip
+// alone, the one that computes the stomatal resistances.
+#if defined(NM_CANOPY_ONE_PASS)
+constexpr int kCanopyPassEnd[] = {NITERC};
+#else
+constexpr int kCanopyPassEnd[] = {1, NITERC};
+#endif
+constexpr int kCanopyPasses = sizeof(kCanopyPassEnd) / sizeof(int);
+static_assert(kCanopyPasses <= 2 && kCanopyPassEnd[kCanopyPasses - 1] == NITERC,
+              "one pass or two, the last ending at NITERC");
+
+// the trips pass p of the canopy loop runs: canopy_first_trip(p) up to
+// canopy_pass_end(p)
+__host__ __device__ constexpr int canopy_pass_end(int pass) {
+  return kCanopyPassEnd[pass];
+}
+
+__host__ __device__ constexpr int canopy_first_trip(int pass) {
+  return pass == 0 ? 0 : kCanopyPassEnd[pass - 1];
+}
+
+// What a trip of the canopy loop reads from the trips before it.  A
+// point that enters the second pass is not done, so the pass's first
+// trip runs and rewrites every other value of the carry before anything
+// reads it.  s1 is read under opt_sfc 1, s2 otherwise.
+struct CanopyCarry {
+  float tv, tah, cm, ch, h, hg, mozg, fhg;
+  bool liter;
+  Sfcdif1Carry s1;
+  Sfcdif2Carry s2;
+  float rssun, rssha, psnsun, psnsha;  // set by the first trip
+};
 
 struct VegeFluxOut {
   float tv, tgv, tah, eah, qsfc, cmv, chv, tauxv, tauyv;
@@ -56,7 +98,11 @@ NM_INL void exchange(int opt_sfc, int chen97_fixed_carry, float czil,
   fh2 = 0.0f;
 }
 
-NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
+// Trips IT0 .. IT1 - 1 of the canopy loop, from the carry k unless
+// IT0 is 0.  Returns false, k holding the carry, if the point is still
+// iterating after them; else finishes the tile into o and returns true.
+template <int IT0, int IT1>
+NM_INL bool vege_flux(const ParamRef& p, const GenScalars& gen,
                      const OptionSet& opt, int chen97_fixed_carry, float dt,
                      float sav, float sag, float lwdn, float ur, float uu,
                      float vv, float sfctmp,
@@ -70,7 +116,8 @@ NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
                      float parsha, float igs, float foln, float co2air,
                      float o2air, float btran, float sfcprs, float rhsur,
                      float psfc, float eah0, float tah0, float tv0, float tg0,
-                     float cm0, float ch0, VegeFluxOut& o) {
+                     float cm0, float ch0, CanopyCarry& k,
+                     VegeFluxOut& o) {
   (void)latheag;
   const float vaie = mn(vai / fveg, 6.0f);
   const float laisune = mn(laisun / fveg, 6.0f);
@@ -99,10 +146,27 @@ NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
   Sfcdif2Carry s2 = {cm0, ch0, 0.0f, 0.0f, 0.1f};
 
   float rssun = 0.0f, rssha = 0.0f, psnsun = 0.0f, psnsha = 0.0f;
+  if (IT0 > 0) {
+    c_tv = k.tv;
+    c_tah = k.tah;
+    c_cm = k.cm;
+    c_ch = k.ch;
+    c_h = k.h;
+    c_hg = k.hg;
+    c_mozg = k.mozg;
+    c_fhg = k.fhg;
+    c_liter = k.liter;
+    s1 = k.s1;
+    s2 = k.s2;
+    rssun = k.rssun;
+    rssha = k.rssha;
+    psnsun = k.psnsun;
+    psnsha = k.psnsha;
+  }
   const float z0h = z0m;
   const float z0hg = z0mg;
 
-  for (int it = 0; it < NITERC; ++it) {
+  for (int it = IT0; it < IT1; ++it) {
     const bool first = it == 0;
     if (!first && c_done) break;
 
@@ -207,6 +271,11 @@ NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
     c_liter = liter;
     c_done = done;
   }
+  if (IT1 < NITERC && !c_done) {
+    k = CanopyCarry{c_tv, c_tah, c_cm, c_ch, c_h, c_hg, c_mozg, c_fhg,
+                    c_liter, s1, s2, rssun, rssha, psnsun, psnsha};
+    return false;
+  }
 
   // under-canopy ground energy balance
   const float air_g =
@@ -282,6 +351,7 @@ NM_INL void vege_flux(const ParamRef& p, const GenScalars& gen,
   o.chleaf = c_cvh;
   o.chuc = rdiv(1.0f, c_rahg);
   o.ch2v = cah2;
+  return true;
 }
 
 NM_INL void bare_flux(const GenScalars& gen, const ClassScalars& cls,

@@ -201,13 +201,16 @@ NM_INL void stage_water(const Point& q) {
   fx.errwat(errwat);
 }
 
+// Every stage but kVegeTile: the launchers walk the vegetated tile's
+// passes themselves (energy.cuh:energy_vege_tile), with the list of the
+// canopy loop's second pass between them.
 NM_INL void run_stage(int stage, const Point& q) {
   switch (stage) {
     case kPrologue: stage_prologue(q); break;
-    case kVegeTile: energy_vege_tile(q); break;
     case kBareTile: energy_bare_tile(q); break;
     case kGround: energy_ground(q); break;
-    default: stage_water(q); break;
+    case kWater: stage_water(q); break;
+    default: break;
   }
 }
 

@@ -5,7 +5,7 @@ package's ``driver/step.py``.
 ``noahmp_tpu/driver/step.py:make_step`` (layout "major": the land-point
 axis leads): the eager step, one CUDA kernel per tensor operation.
 ``make_fused_step`` is the counterpart of ``make_fused_step`` there: the
-whole step of every point through the hand-written column kernels, four
+whole step of every point through the hand-written column kernels, five
 launches enqueued by one C call (``kernels/column.py``).  PyTorch runs
 eagerly, so there is nothing to trace or compile here; building a step
 checks the options, moves the tables and fixes the device.
@@ -69,7 +69,7 @@ def make_step(params, opts, dt, device=None):
 
 def make_fused_step(params, opts, dt, static, device=None):
     """Build step(static_ignored, forcing, state) -> (state, flux) that
-    advances every land point through the fused column kernels: four
+    advances every land point through the fused column kernels: five
     launches a step, enqueued by one C call.
 
     The table lookups are gathered once, here, from ``static``'s class

@@ -19,10 +19,15 @@ some tens of instructions each, a point is one long dependent scalar
 chain, and one thread a point gives the card few warps at 65,536 points
 (``chip_smoke.py`` prints ``issue_ms`` beside ``bound_ms``).
 
-The design (``csrc/column.cu``): a step is four launches (``STAGES``),
-each stage its own kernel with its own register budget; what crosses
+The design (``csrc/column.cu``): a step is four stages (``STAGES``),
+each its own kernel with its own register budget; what crosses
 from a stage to a later one goes through a scratch buffer laid out
 ``(words, slab)`` so that every access is coalesced (``SEAM_FIELDS``).
+The flux stage runs the canopy Newton loop in two passes
+(``CANOPY_PASS_ENDS``), one launch each: after the first trip every
+point is listed on the card, those with a canopy apart from those
+without, and the second pass runs the remaining trips over the list, so
+that a warp of it holds one kind of point and takes one kind of branch.
 The launcher walks the points in slabs of ``SLAB_POINTS``, every stage
 on one slab before the next, so the scratch is allocated once, when the
 step is built, and is bounded whatever n is.  Every physics function is
@@ -34,7 +39,7 @@ transposes, no padding, the grid masks ``i < n``); the two implicit
 solves go through ``thomas_solve<7>`` and ``thomas_solve<4>`` of
 ``csrc/tridiag.cuh``.  With ``opt_veg`` 2 or 5 the carbon pools
 (``csrc/carbon.cuh``) run at the end of the water stage, which holds
-their inputs in registers: a step stays four launches.
+their inputs in registers: a step stays four stages.
 
 The wrapper makes one ``ctypes`` call a step.  ``ColumnPlan`` prepares
 everything that does not change from step to step, and recognises the
@@ -73,15 +78,19 @@ _CTYPE = {"float": torch.float32, "int": torch.int32}
 _FIELD_LISTS = ("STATIC", "FORCING", "STATE", "FLUX", "PARAM")
 _NAME_LISTS = ("OPTION", "CLASS", "GEN")
 
-# The launches of a step, in order, and the points a slab holds: every
+# The stages of a step, in order, and the points a slab holds: every
 # stage runs on one slab before the next slab begins, so the scratch
-# holds SLAB_POINTS points at most, whatever n is (348 bytes a point, 365
+# holds SLAB_POINTS points at most, whatever n is (452 bytes a point, 474
 # MB at most).  Slabs small enough for the scratch to stay in the L2
 # cache were measured and lost: at 1,048,576 points, slabs of 65,536
 # took 2.88 ms a step against 2.12 ms in one pass (csrc/column.cu).
 STAGES = ("prologue", "flux", "ground", "water")
-LAUNCHES_PER_STEP = len(STAGES)     # of each slab
 SLAB_POINTS = 1048576
+# The trip at which each pass of the canopy loop ends
+# (csrc/flux.cuh:kCanopyPassEnd); the flux stage is one launch a pass.
+CANOPY_PASS_ENDS = (1, 20)
+KERNELS = ("prologue", "flux", "flux_rest", "ground", "water")
+LAUNCHES_PER_STEP = len(KERNELS)    # of each slab
 
 # What crosses from one stage to a later one through the scratch buffer,
 # (name, words), in the order of NM_SEAM_FIELDS in csrc/column_args.cuh.
@@ -103,8 +112,27 @@ SEAM_FIELDS = (
     # ground -> water
     ("qvap", 1), ("qdew", 1), ("g_snowh", 1), ("g_snice", 3),
     ("g_snliq", 3), ("g_stc", 7), ("g_swc", 4), ("g_smc", 4),
-    ("g_imelt", 3))
+    ("g_imelt", 3),
+    # canopy loop, first pass -> second (csrc/flux.cuh:CanopyCarry); the
+    # list of the points
+    ("c_tv", 1), ("c_tah", 1), ("c_cm", 1), ("c_ch", 1), ("c_h", 1),
+    ("c_hg", 1), ("c_mozg", 1), ("c_fhg", 1), ("c_liter", 1),
+    ("c1_moz", 1), ("c1_mozsgn", 1), ("c1_fm", 1), ("c1_fh", 1),
+    ("c1_fm2", 1), ("c1_fh2", 1), ("c1_fv", 1), ("c2_akms", 1),
+    ("c2_akhs", 1), ("c2_rlmo", 1), ("c2_wstar2", 1), ("c2_ustar", 1),
+    ("c_rssun", 1), ("c_rssha", 1), ("c_psnsun", 1), ("c_psnsha", 1),
+    ("pending", 1))
 SEAM_WORDS = sum(words for _name, words in SEAM_FIELDS)
+# int32 words after a slab's seam words: how many points the list of the
+# canopy loop's second pass holds at its front (with a canopy) and at its
+# back (without one) (csrc/column_args.cuh:kPassCounters)
+PASS_COUNTERS = 2
+
+
+def scratch_words(slab):
+    """Float32 words of the scratch buffer of a step over slabs of
+    ``slab`` points."""
+    return SEAM_WORDS * slab + PASS_COUNTERS
 
 
 def device_launches(n):
@@ -204,17 +232,18 @@ def _args_type():
 
 def check_abi(lib, args_type):
     """Hold the library's counts and struct size against this side's."""
-    counts = (ctypes.c_int * 9)()
+    counts = (ctypes.c_int * 10)()
     lib.noahmp_column_abi.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.noahmp_column_abi.restype = None
     lib.noahmp_column_abi(counts)
     head = header_layout()
     want = [len(args_type().in_), len(args_type().out), len(head["OPTION"]),
             len(head["CLASS"]), len(head["GEN"]), ctypes.sizeof(args_type)]
-    if list(counts[:6]) != want or counts[8] != SEAM_WORDS:
+    if (list(counts[:6]) != want or counts[8] != SEAM_WORDS
+            or counts[9] != PASS_COUNTERS):
         raise RuntimeError(f"column kernel ABI {list(counts)} does not "
                            f"match the wrapper's {want}, {SEAM_WORDS} words "
-                           "of scratch a point")
+                           f"of scratch a point and {PASS_COUNTERS} after")
     return list(counts)
 
 
@@ -240,19 +269,21 @@ def _library():
 
 
 def kernel_attributes():
-    """For each stage's kernel: registers and local-memory bytes a
-    thread, and its launch shape."""
-    attrs = (ctypes.c_int * (5 * len(STAGES)))()
+    """For each kernel of a slab (``KERNELS``) and the stage it belongs
+    to: registers and local-memory bytes a thread, and its launch
+    shape."""
+    attrs = (ctypes.c_int * (5 * len(KERNELS)))()
     err = _library().noahmp_column_attributes(attrs)
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed, CUDA error {err}")
-    return [{"stage": stage,
+    return [{"kernel": kernel,
+             "stage": "flux" if kernel.startswith("flux") else kernel,
              "registers_per_thread": attrs[5 * k],
              "local_bytes_per_thread": attrs[5 * k + 1],
              "threads_per_block": attrs[5 * k + 2],
              "min_blocks_per_sm": attrs[5 * k + 3],
              "threads_per_point": attrs[5 * k + 4]}
-            for k, stage in enumerate(STAGES)]
+            for k, kernel in enumerate(KERNELS)]
 
 
 def _check_leaf(where, name, t, dtype, width, n, device, need_cuda=True):
@@ -323,7 +354,7 @@ class ColumnPlan:
         fixed_p = _checked("PARAM", gathered.fields, self.n, self.device,
                            need_cuda)
         self.slab = max(1, min(self.n, SLAB_POINTS))
-        self.scratch = torch.empty(SEAM_WORDS * self.slab,
+        self.scratch = torch.empty(scratch_words(self.slab),
                                    dtype=torch.float32, device=self.device)
         self._keep = fixed_s + fixed_p      # the pointers below stay valid
         at_forcing = len(head["STATIC"])
@@ -476,9 +507,11 @@ column_cuda.launches = 0
 
 
 def launch_stage(plan: ColumnPlan, stage):
-    """Enqueue one stage alone on the pointers of the plan's last step,
-    for timing it.  The caller keeps that step's Forcing, State and
-    outputs alive; never part of a step, and counted nowhere."""
+    """Enqueue one stage alone (the flux stage: both passes, after
+    emptying the canopy loop's list) on the pointers of the plan's last
+    step, for timing it.  The caller keeps that step's Forcing,
+    State and outputs alive; never part of a step, and counted
+    nowhere."""
     fn = _library().noahmp_column_stage
     with torch.cuda.device(plan.device):
         err = fn(ctypes.byref(plan.args), STAGES.index(stage),

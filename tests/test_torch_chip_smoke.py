@@ -211,3 +211,36 @@ def test_crossings_reference_reads_the_jax_count(smoke):
     assert smoke.crossings_reference(
         "default", smoke.NATIVE_COPIES, smoke.NATIVE_FUZZ_STEPS + 1) is None
     assert smoke.crossings_reference("CONUS", smoke.NATIVE_COPIES, 1) is None
+
+
+def test_canopy_split_phase_on_host_builds(smoke, tmp_path):
+    """Phase ``canopy_split`` with the host build of the kernels' sources
+    in place of the card's, the package's two passes and the one-pass
+    build: every leaf bit-equal at every hour, the pass counters read,
+    the plain step's trips beside them; nothing timed on the CPU."""
+    import torch
+    from noahmp_tpu_torch import load_params
+    builds = []
+    for name, defines in (("split", ()),
+                          ("one_pass", (smoke.ONE_PASS_DEFINE,))):
+        where = tmp_path / name
+        where.mkdir()
+        smoke.host_column_library(str(where), *defines)
+        builds.append(smoke.ColumnBuild(
+            name, str(where / "libcolumn_host.so"), on_card=False))
+    out = smoke.phase_canopy_split(load_params(device="cpu"),
+                                   torch.device("cpu"), builds, n=128,
+                                   span=4, hours=(0, 1))
+    assert out["pass_ends"] == [1, 20]
+    assert [row["step"] for row in out["steps"]] == [4, 8]
+    for row in out["steps"]:
+        assert row["leaves_bit_equal"] == 97
+        # every point goes on after the first trip, those without a
+        # canopy at the list's back
+        assert row["second_pass_share"] == 1.0
+        assert 0.0 < row["without_canopy_share"] < 1.0
+    trips = out["plain_trips"]
+    assert trips["points"] == 256
+    assert sum(trips["histogram"].values()) == 256
+    assert trips["share_without_canopy"] > 0.0
+    assert not any(key.endswith("_ms") for key in out)

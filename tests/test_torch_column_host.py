@@ -7,7 +7,9 @@ State and Flux leaf must come out inside the step's bars (cases.py) of
 steps, and for every option value the fused step accepts; and the
 staged walk must give the very bits of a single pass in which a point
 runs through every stage before the next point begins, whatever the
-slab size.
+slab size; and the canopy loop in two passes, the points listed between
+them, the very bits of the same sources built with one pass of every
+trip.
 
 This says nothing about the CUDA build, the launch or the card's math
 library; ``chip_smoke.py`` holds the kernel itself against the plain
@@ -23,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from noahmp_tpu_torch import Options, load_params
+from benchmarks_torch.spinup import device_forcing, domain
+from noahmp_tpu_torch import Options, load_params, make_step
 from noahmp_tpu_torch.cases import (FLUX_BAR, FLUX_CEILING, REGIMES,
                                     STATE_BAR, STATE_CEILING, bar_ratio,
                                     hetero_case, to_device, uniform_case)
@@ -33,19 +36,20 @@ from noahmp_tpu_torch.kernels._build import CSRC_DIR
 from noahmp_tpu_torch.options import fused_option_sets
 from noahmp_tpu_torch.params.gathered import gather_params
 from noahmp_tpu_torch.physics import flux as flux_physics
+from noahmp_tpu_torch.state import init_state
+from scripts.canopy_trips import step_trips
 
 DT = 900.0
 STEPS = 4
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def _build_host(tmp_path_factory, *defines):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler on this machine")
     out = tmp_path_factory.mktemp("column_host") / "libcolumn_host.so"
     subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-o", str(out),
+                    "-fPIC", *defines, "-o", str(out),
                     os.path.join(CSRC_DIR, "column_host.cpp")], check=True)
     lib = ctypes.CDLL(str(out))
     args_type = column._args_type()
@@ -54,6 +58,18 @@ def host_lib(tmp_path_factory):
     lib.noahmp_column_host.argtypes = [ctypes.POINTER(args_type)]
     lib.noahmp_column_host.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _build_host(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def one_pass_lib(tmp_path_factory):
+    """The same sources with the canopy loop in one pass of every trip
+    (csrc/flux.cuh:NM_CANOPY_ONE_PASS), as before the loop was split."""
+    return _build_host(tmp_path_factory, "-DNM_CANOPY_ONE_PASS")
 
 
 @pytest.fixture(scope="module")
@@ -220,3 +236,71 @@ def test_host_stage_entry_walks_one_stage(host_lib, params):
     for leaf, want in whole.items():
         np.testing.assert_array_equal(_bits(new_state, flux)[leaf], want,
                                       err_msg=leaf)
+
+
+SPLIT_POINTS = 384        # of the spin-up cell's domain
+SPLIT_STEPS = (30, 31, 32, 56, 57)   # since Jan 1 00:00: night and midday
+SPLIT_OPTIONS = {"default": Options(), "opt_sfc_2": Options(sfc=2),
+                 "opt_crs_2": Options(crs=2)}
+
+
+@pytest.fixture(scope="module")
+def spinup_states(params):
+    """The cell's domain from a cold start on Jan 1, the State before
+    each of SPLIT_STEPS by the plain step, and the plain step's canopy
+    trips at each of them."""
+    static = domain(SPLIT_POINTS, 0, "cpu")
+    state = init_state(SPLIT_POINTS, device="cpu")
+    step = make_step(params, Options(), DT, device="cpu")
+    states, trips = {}, {}
+    for k in range(SPLIT_STEPS[-1] + 1):
+        forcing = device_forcing(k * DT, static)
+        if k in SPLIT_STEPS:
+            states[k] = state
+            state, trips[k], _bare = step_trips(step, static, forcing,
+                                                state)
+        else:
+            state, _flux = step(static, forcing, state)
+    return static, states, trips
+
+
+@pytest.mark.parametrize("slab", [None, 50])
+@pytest.mark.parametrize("opts", sorted(SPLIT_OPTIONS))
+def test_canopy_passes_are_bit_equal_to_one_pass(host_lib, one_pass_lib,
+                                                 params, spinup_states,
+                                                 opts, slab):
+    """The canopy loop in the two passes of ``column.CANOPY_PASS_ENDS``,
+    the points listed between them (those without a canopy at the list's
+    back), against the same sources built with one pass of every trip:
+    the same bits in all 97 leaves (NaN included), at each of
+    SPLIT_STEPS steps of the spin-up cell's domain, in one slab and in
+    slabs of 50 points (each slab's list emptied anew).  At every step
+    the sample fills both ends of the list, and by the plain step's trip
+    counts it has points that go on past the first pass's end and
+    points that leave the loop in the second pass before its last trip
+    and at it."""
+    static, states, trips = spinup_states
+    end = column.CANOPY_PASS_ENDS[0]
+    for k in SPLIT_STEPS:
+        t = trips[k]
+        assert ((t > end) & (t < 20)).any() and (t == 20).any(), k
+        forcing = device_forcing(k * DT, static)
+        results = []
+        for lib in (host_lib, one_pass_lib):
+            g = gather_params(params, static.lutyp, static.sltyp, static.isc,
+                              static.slptyp)
+            plan = column.ColumnPlan(g, SPLIT_OPTIONS[opts], DT, static,
+                                     need_cuda=False)
+            if slab is not None:
+                plan.args.slab = slab
+            plan.scratch.fill_(float("nan"))
+            results.append(_bits(*host_step(lib, plan, forcing, states[k])))
+            if lib is host_lib and slab is None:
+                front, back = plan.scratch[column.SEAM_WORDS * SPLIT_POINTS:][
+                    :column.PASS_COUNTERS].view(torch.int32).tolist()
+                assert front > 0 and back > 0, (k, front, back)
+                assert front + back == SPLIT_POINTS, (k, front, back)
+        split, one = results
+        for leaf, want in one.items():
+            np.testing.assert_array_equal(split[leaf], want,
+                                          err_msg=f"step {k}: {leaf}")

@@ -57,11 +57,16 @@ def test_seam_list_matches_python_side():
     """The words that cross between the stages: the header's X-macro
     list against ``SEAM_FIELDS``, name by name and width by width."""
     assert tuple((n, w) for n, _d, w in HEAD["SEAM"]) == column.SEAM_FIELDS
-    assert column.SEAM_WORDS == sum(w for _n, _d, w in HEAD["SEAM"]) == 87
+    assert column.SEAM_WORDS == sum(w for _n, _d, w in HEAD["SEAM"]) == 113
     names = [n for n, _w in column.SEAM_FIELDS]
     assert len(set(names)) == len(names)
     ints = {n for n, d, _w in HEAD["SEAM"] if d == torch.int32}
-    assert ints == {"g_imelt"}
+    assert ints == {"g_imelt", "c_liter", "c1_mozsgn", "pending"}
+    # one list for the canopy loop's second pass, its two counters
+    # (front, back) after the slab's words
+    assert dict(column.SEAM_FIELDS)["pending"] == 1
+    assert column.PASS_COUNTERS == 2
+    assert column.scratch_words(3) == 3 * 113 + 2
     # no seam word shadows an argument leaf's name in the accessors
     leaves = {n for key in ("STATIC", "FORCING", "STATE", "FLUX", "PARAM")
               for n, _d, _w in HEAD[key]}
@@ -76,13 +81,34 @@ def test_seam_mismatch_is_refused(monkeypatch):
 
 def test_launches_and_slabs():
     assert column.STAGES == ("prologue", "flux", "ground", "water")
-    assert column.LAUNCHES_PER_STEP == 4
+    # the flux stage is one launch for each pass of the canopy loop
+    assert column.KERNELS == ("prologue", "flux", "flux_rest", "ground",
+                              "water")
+    assert column.LAUNCHES_PER_STEP == 5
     slab = column.SLAB_POINTS
-    assert column.device_launches(1) == column.device_launches(slab) == 4
-    assert column.device_launches(slab + 1) == 8
+    assert column.device_launches(1) == column.device_launches(slab) == 5
+    assert column.device_launches(slab + 1) == 10
     args = column._args_type()
     assert [f[0] for f in args._fields_][:5] == ["in_", "out", "scratch",
                                                   "slab", "n"]
+
+
+def test_canopy_passes_match_header():
+    """``CANOPY_PASS_ENDS`` against ``csrc/flux.cuh:kCanopyPassEnd`` as
+    the package builds it (without NM_CANOPY_ONE_PASS): two passes, the
+    last ending at NITERC; the package's build never defines
+    NM_CANOPY_ONE_PASS."""
+    with open(os.path.join(CSRC_DIR, "flux.cuh")) as fh:
+        text = fh.read()
+    m = re.search(r"#else\s*constexpr int kCanopyPassEnd\[\] = \{([^}]*)\}",
+                  text)
+    ends = tuple(int(v) if v.strip().isdigit() else v.strip()
+                 for v in m.group(1).split(","))
+    assert ends[:-1] == column.CANOPY_PASS_ENDS[:-1] and ends[-1] == "NITERC"
+    assert len(column.CANOPY_PASS_ENDS) == 2
+    assert 0 < column.CANOPY_PASS_ENDS[0] < column.CANOPY_PASS_ENDS[1] == 20
+    assert "NM_CANOPY_ONE_PASS" not in " ".join(
+        sum(EXTRA_FLAGS.values(), ()))
 
 
 def test_words_per_point():

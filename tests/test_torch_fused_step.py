@@ -176,7 +176,8 @@ def test_column_plan_checks_every_step_leaf():
     assert len(new_state) + len(flux) == 97
     assert new_state.nsnow.dtype == torch.int32
     assert tuple(new_state.zsnso.shape) == (4, 7) and flux.fsa.is_contiguous()
-    assert tuple(plan.scratch.shape) == (column.SEAM_WORDS * 4,)
+    assert tuple(plan.scratch.shape) == (column.SEAM_WORDS * 4
+                                         + column.PASS_COUNTERS,)
 
 
 @pytest.fixture

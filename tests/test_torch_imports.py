@@ -104,11 +104,12 @@ def test_dist_default_device_is_the_card(entry, tmp_path):
 def test_sources_name_no_jax_import():
     """Static check of the same: no import statement of jax or of the
     JAX package in the port, in its measured entry points
-    (benchmarks_torch/) or in chip_smoke.py."""
+    (benchmarks_torch/), in chip_smoke.py or in the script it imports."""
     import re
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|noahmp_tpu)(\.|\s|$)",
                      re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "canopy_trips.py")]
     for top in (os.path.dirname(noahmp_tpu_torch.__file__),
                 os.path.join(ROOT, "benchmarks_torch")):
         for base, _dirs, names in os.walk(top):
